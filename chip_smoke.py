@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Smoke test of obca_torch on one CUDA GPU: build, check, run, measure.
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure raises and exits
+non-zero, and no result line is printed):
+
+1. the card's name and power limit, as nvidia-smi reports them;
+2. build the three CUDA kernels from ``obca_torch/solver/kernels/csrc``
+   (one nvcc per source, in parallel) and print the build seconds;
+3. each kernel against its plain PyTorch version on the card, at the
+   main path's shapes (B=128, S=81, nz=56), on a well-conditioned
+   random quasidefinite system from a numpy seed (relative error must
+   be <= 1e-4) and on the real system of the main path's first IPM
+   iteration (printed); median CUDA-event times over 25 runs each;
+4. the main path as ``bench.py`` builds it: 128 start-pose shifts of
+   ``reverse_parking_spec(N=80, Ts=0.3)`` in float32, one shared
+   ``lattice.plan_field``, per-lane ``geometric.lattice_warm_start`` and
+   ``ipm.solve_batch_rescued`` under ``f32_solver_config(max_iter=55)``
+   (rescue mu 1e-5) — one warm-up run, then one timed run between
+   which every kernel's launch count is reset and read (every kernel
+   must have launched), two more timed runs for the spread, and one
+   under torch.profiler for the device's busy share and the kernels
+   that take its time;
+5. parity: the golden warm start of
+   ``oracle/goldens/reverse_parking_N80.npz`` solved at B=1 under
+   ``f32_solver_config()``; max |U - U_gold| must be < 1e-3;
+6. one ``kernels`` JSON line, then the device line, last.
+
+It imports nothing of JAX and nothing of ``obca_tpu``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# NVIDIA H100 SXM data-sheet peaks (dense, no sparsity, 700 W).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+B_MAIN, N_MAIN, TS_MAIN, ITERS_MAIN = 128, 80, 0.3, 55
+SYNTH_TOL = 1e-4
+PARITY_TOL = 1e-3
+REPLACES = {
+    "factor_se": "obca_tpu/solver/pallas/blocktri_kernel.py:404",
+    "fwd_se": "obca_tpu/solver/pallas/blocktri_kernel.py:748",
+    "bwd_matvec_se": "obca_tpu/solver/pallas/blocktri_kernel.py:663",
+}
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_ms(fn, device, runs=25):
+    """Median time of ``fn()`` in ms: CUDA events around each run on the
+    card (after two warm-up runs), the host clock on the CPU."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    _sync(device)
+    times = []
+    for _ in range(runs):
+        if device.type == "cuda":
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        else:
+            s = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - s))
+    return statistics.median(times)
+
+
+def synthetic_system(B, S, nw, nc, nnz, seed=0):
+    """Well-conditioned random quasidefinite block-tridiagonal system,
+    batch-major numpy f64: K [B, S, nz, nz], ev [B, S-1, nnz], reg [B, nz],
+    r [B, S, nz]."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B, S, nw, nw))
+    A = M @ np.swapaxes(M, -1, -2) / nw + 2.0 * np.eye(nw)
+    Q = rng.standard_normal((B, S, nc, nc))
+    D = -(Q @ np.swapaxes(Q, -1, -2) / nc + np.eye(nc))
+    J = rng.standard_normal((B, S, nc, nw))
+    K = np.concatenate([np.concatenate([A, np.swapaxes(J, -1, -2)], -1),
+                        np.concatenate([J, D], -1)], -2)
+    ev = 0.3 * rng.standard_normal((B, S - 1, nnz))
+    reg = np.tile(np.concatenate([np.full(nw, 1e-4), np.full(nc, -1e-4)]),
+                  (B, 1))
+    r = rng.standard_normal((B, S, nw + nc))
+    return K, ev, reg, r
+
+
+def kernel_costs(B, S, nz, nnz, C):
+    """(bytes, operations) each kernel must at least move / do at these
+    shapes: every input read once, every output written once (f32 data,
+    int32 pattern)."""
+    f, i = 4, 4
+    K = B * S * nz * nz * f
+    ev = B * (S - 1) * nnz * f
+    vec = B * S * nz * f
+    Wc = B * (S - 1) * nz * C * f
+    return {
+        "factor_se": (
+            K + ev + B * nz * f + (2 * nnz + C) * i + K + Wc,
+            B * S * 2 * nz ** 3
+            + B * (S - 1) * (2 * nz * nnz + 2 * nnz * C)),
+        "fwd_se": (
+            K + ev + vec + 2 * nnz * i + vec,
+            B * S * 2 * nz * nz + B * (S - 1) * 2 * nnz),
+        "bwd_matvec_se": (
+            Wc + vec + K + ev + (2 * nnz + C) * i + 2 * vec,
+            B * S * 2 * nz * nz + B * (S - 1) * (2 * nz * C + 4 * nnz)),
+    }
+
+
+def bound_ms(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare_kernels(bk, pat, K, ev, reg, r, device, timing):
+    """Run each kernel and its plain version on the same inputs on
+    ``device``; returns {name: {errors..., ms, plain_ms}}.  Each kernel's
+    inputs come from the kernel before it."""
+    import torch
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=device).contiguous()
+
+    K, ev, reg, r = dev(K), dev(ev), dev(reg), dev(r)
+    Sinv, Wc = bk.factor_se(K, ev, reg, pat)
+    Sinv_p, Wc_p = bk.factor_se_plain(K, ev, reg, pat)
+    y = bk.fwd_se(Sinv, ev, r, pat)
+    y_p = bk.fwd_se_plain(Sinv, ev, r, pat)
+    p, Ap = bk.bwd_matvec_se(Wc, y, K, ev, pat)
+    p_p, Ap_p = bk.bwd_matvec_se_plain(Wc, y, K, ev, pat)
+    _sync(device)
+
+    def err(got, want):
+        a = float((got - want).abs().max())
+        return a, a / max(float(want.abs().max()), 1e-30), \
+            bool(torch.isfinite(got).all())
+
+    out = {
+        "factor_se": {"Sinv": err(Sinv, Sinv_p), "Wc": err(Wc, Wc_p)},
+        "fwd_se": {"y": err(y, y_p)},
+        "bwd_matvec_se": {"p": err(p, p_p), "Ap": err(Ap, Ap_p)},
+    }
+    if timing:
+        calls = {
+            "factor_se": (lambda: bk.factor_se(K, ev, reg, pat),
+                          lambda: bk.factor_se_plain(K, ev, reg, pat)),
+            "fwd_se": (lambda: bk.fwd_se(Sinv, ev, r, pat),
+                       lambda: bk.fwd_se_plain(Sinv, ev, r, pat)),
+            "bwd_matvec_se": (
+                lambda: bk.bwd_matvec_se(Wc, y, K, ev, pat),
+                lambda: bk.bwd_matvec_se_plain(Wc, y, K, ev, pat)),
+        }
+        for name, (kern, plain) in calls.items():
+            out[name]["ms"] = time_ms(kern, device)
+            out[name]["plain_ms"] = time_ms(plain, device, runs=20)
+    return out
+
+
+def print_errors(label, res):
+    for name, d in res.items():
+        for what, v in d.items():
+            if isinstance(v, tuple):
+                print(f"{label} {name}.{what}: max_abs_err {v[0]:.3e} "
+                      f"max_rel_err {v[1]:.3e} finite {v[2]}")
+
+
+def main_path_batch(device, B=B_MAIN, N=N_MAIN, Ts=TS_MAIN):
+    """bench.py's batch: B start-pose shifts of the canonical reverse
+    parking scenario, float32."""
+    import torch
+    from obca_torch import reverse_parking_spec
+    from obca_torch import spec as tspec
+
+    base = reverse_parking_spec(N=N, Ts=Ts, dtype=torch.float32,
+                                device=device)
+    shifts = np.random.default_rng(0).uniform(
+        -0.5, 0.5, size=(B, 2)).astype(np.float32)
+    specs = tspec.stack([
+        dataclasses.replace(base, x0=base.x0 + torch.tensor(
+            [dx, dy, 0.0, 0.0], dtype=torch.float32, device=device))
+        for dx, dy in shifts])
+    return base, specs
+
+
+def run_main_path(base, specs, cfg):
+    """plan_field -> lattice_warm_start -> solve_batch_rescued; returns
+    the result and the seconds of each stage."""
+    import torch
+    from obca_torch.solver import ipm
+    from obca_torch.warmstart import geometric, lattice
+
+    dev = base.x0.device
+    t = [time.perf_counter()]
+    lcfg = lattice.LatticeConfig.for_spec(base)
+    field = lattice.plan_field(base, lcfg)
+    _sync(dev)
+    t.append(time.perf_counter())
+    W0 = geometric.lattice_warm_start(specs, dtype=torch.float32, cfg=lcfg,
+                                      field=field)
+    _sync(dev)
+    t.append(time.perf_counter())
+    res = ipm.solve_batch_rescued(specs, cfg, W0, rescue_mu=1e-5)
+    _sync(dev)
+    t.append(time.perf_counter())
+    secs = {"plan_field_s": t[1] - t[0], "warm_start_s": t[2] - t[1],
+            "solve_s": t[3] - t[2], "wall_s": t[3] - t[0]}
+    return res, secs
+
+
+class FirstIterationCapture:
+    """Records the (K, ev, reg) of the second factorization (the first
+    IPM iteration; the first one is the dual least-squares start) and the
+    right-hand side of the forward substitution that follows it, while
+    passing every call through to the real wrapper."""
+
+    def __init__(self, bk):
+        self.bk = bk
+        self.n_factor = 0
+        self.system = None
+        self.rhs = None
+        self._factor, self._fwd = bk.factor_se, bk.fwd_se
+
+    def __enter__(self):
+        def factor(K, ev, reg, pat):
+            self.n_factor += 1
+            if self.n_factor == 2:
+                self.system = (K.clone(), ev.clone(), reg.clone(), pat)
+            return self._factor(K, ev, reg, pat)
+
+        def fwd(Sinv, ev, r, pat):
+            if self.system is not None and self.rhs is None:
+                self.rhs = r.clone()
+            return self._fwd(Sinv, ev, r, pat)
+
+        self.bk.factor_se, self.bk.fwd_se = factor, fwd
+        return self
+
+    def __exit__(self, *exc):
+        self.bk.factor_se, self.bk.fwd_se = self._factor, self._fwd
+
+
+def stage_inverse_accuracy(bk, pat, nw, K, ev, reg):
+    """How exactly the factor inverts the real system in float32.
+    Returns the kernel factor's max relative error against a float64
+    factor of the same system, and, on the stage-0 block alone, the
+    float64 condition number (median over lanes) and the pivot-free,
+    primal-first inverse of the TPU kernel (``blocktri.qd_inv``) in
+    float32: its non-finite lanes and its max relative error on the
+    others."""
+    import torch
+    from obca_torch.solver import blocktri
+
+    def rel(got, want):
+        dims = tuple(range(1, want.dim()))
+        return ((got.double() - want).abs().amax(dims)
+                / want.abs().amax(dims))
+
+    Sinv, _ = bk.factor_se(K, ev, reg, pat)
+    Sinv64, _ = bk.factor_se_plain(K.double(), ev.double(), reg.double(),
+                                   pat)
+    A0 = K[:, 0].double() + torch.diag_embed(reg.double())
+    inv0 = torch.linalg.inv(A0)
+    qd = blocktri.qd_inv(A0.float(), nw)
+    fin = torch.isfinite(qd.reshape(qd.shape[0], -1)).all(1)
+    return {
+        "kernel_factor_rel_err_max": float(rel(Sinv, Sinv64).max()),
+        "stage0_cond_median": float(torch.linalg.cond(A0).median()),
+        "stage0_kernel_rel_err_max": float(rel(Sinv[:, 0], inv0).max()),
+        "stage0_primal_first_nonfinite_lanes": int((~fin).sum()),
+        "stage0_primal_first_rel_err_max": (
+            float(rel(qd[fin], inv0[fin]).max()) if fin.any() else None),
+    }
+
+
+def device_profile(fn):
+    """Run ``fn`` under torch.profiler: (wall s, device busy s, the
+    eight CUDA kernels with the most device time as (name, ms, calls)).
+    Busy time is the sum of kernel times (one stream, no overlap)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    top = sorted(kern, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return wall, busy, [(e.key[:60], e.self_device_time_total / 1e3,
+                         e.count) for e in top]
+
+
+def parity_gap(device):
+    import torch
+    from obca_torch import f32_solver_config, reverse_parking_spec
+    from obca_torch.solver import ipm
+
+    gold = np.load(os.path.join(ROOT, "oracle", "goldens",
+                                "reverse_parking_N80.npz"))
+    spec = reverse_parking_spec(N=int(gold["N"]), Ts=float(gold["Ts"]),
+                                dtype=torch.float32, device=device)
+    W0 = torch.as_tensor(gold["W0"], dtype=torch.float32, device=device)
+    res = ipm.solve_single(spec, f32_solver_config(), W0)
+    gap = float(np.abs(res.U.double().cpu().numpy() - gold["U"]).max())
+    return gap, int(res.status), int(res.iters)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device is available")
+    sys.path.insert(0, ROOT)
+    from obca_torch import f32_solver_config, nlp
+    from obca_torch.solver import ipm
+    from obca_torch.solver.kernels import blocktri_se as bk
+    from obca_torch.solver.kernels import build
+
+    device = torch.device("cuda", 0)
+
+    # 1. The card.
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    # 2. Build.
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    print(f"build_s {time.perf_counter() - t0:.1f}")
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    # 3a. Kernels against their plain versions: synthetic system.
+    base, specs = main_path_batch(device)
+    L = nlp.layout_of(base)
+    rows, cols = nlp.coupling_structure(L)
+    pat = bk.CouplingPattern.of(rows, cols)
+    S, nz, nnz, C = L.N + 1, L.nz, len(rows), len(pat.ucols)
+    synth = compare_kernels(bk, pat,
+                            *synthetic_system(B_MAIN, S, L.nw, L.nc, nnz),
+                            device, timing=True)
+    print_errors("synthetic", synth)
+    bounds = {name: bound_ms(*c)
+              for name, c in kernel_costs(B_MAIN, S, nz, nnz, C).items()}
+    for name, d in synth.items():
+        for what, (_abs, rel, finite) in (
+                (k, v) for k, v in d.items() if isinstance(v, tuple)):
+            if not finite or rel > SYNTH_TOL:
+                raise RuntimeError(f"{name}.{what} disagrees with its plain "
+                                   f"version: rel err {rel:.3e}")
+        print(f"time {name}: kernel {d['ms']:.4f} ms, plain "
+              f"{d['plain_ms']:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]})")
+
+    # 4. The main path: warm-up run (also captures the first IPM
+    # iteration's system), then the counted, timed run.
+    cfg = f32_solver_config(max_iter=ITERS_MAIN)
+    with FirstIterationCapture(bk) as cap:
+        _, warm_secs = run_main_path(base, specs, cfg)
+    print(f"main path warm-up wall_s {warm_secs['wall_s']:.3f}")
+    bk.reset_launches()
+    res, secs = run_main_path(base, specs, cfg)
+    launches = dict(bk.launches)
+    walls = [secs["wall_s"]] + [run_main_path(base, specs, cfg)[1]["wall_s"]
+                                for _ in range(2)]
+    status = res.status.cpu().numpy()
+    iters = res.iters.cpu().numpy()
+    n_conv = int((status == ipm.STATUS_CONVERGED).sum())
+    if not torch.isfinite(res.U).all():
+        raise RuntimeError("main path returned non-finite controls")
+    if res.U.shape != (B_MAIN, N_MAIN, 2):
+        raise RuntimeError(f"main path U has shape {tuple(res.U.shape)}")
+    main = {
+        "B": B_MAIN, "N": N_MAIN, "converged": n_conv,
+        "iters_median": float(np.median(iters)),
+        "iters_max": int(iters.max()),
+        **{k: round(v, 4) for k, v in secs.items()},
+        "solves_per_s": B_MAIN / secs["wall_s"],
+        "converged_solves_per_s": n_conv / secs["wall_s"],
+        "wall_s_runs": walls,
+        "converged_solves_per_s_median": n_conv / statistics.median(walls),
+        "launches": launches,
+    }
+    print("main_path " + json.dumps(main))
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the "
+                               f"main path")
+    kernel_s = sum(launches[n] * synth[n]["ms"] for n in launches) / 1e3
+    print(f"main path: kernels ~{kernel_s:.3f} s of {secs['wall_s']:.3f} s "
+          f"wall (launches x synthetic median time)")
+    p_wall, p_busy, p_top = device_profile(
+        lambda: run_main_path(base, specs, cfg))
+    if p_busy > 0:
+        print(f"profiled main path: wall {p_wall:.3f} s, device busy "
+              f"{p_busy:.3f} s ({100 * p_busy / p_wall:.1f}%)")
+        for name, ms, calls in p_top:
+            print(f"  device {ms:9.2f} ms  {calls:6d} calls  {name}")
+    else:
+        print("profiled main path: device time not measured (the "
+              "profiler recorded no CUDA kernels)")
+
+    # 3b. Kernels against their plain versions: the main path's real
+    # first-iteration system (Ruiz-scaled, as the solver factors it).
+    Kr, evr, regr, patr = cap.system
+    real = compare_kernels(bk, patr, Kr, evr, regr, cap.rhs, device,
+                           timing=False)
+    print_errors("first-iteration", real)
+    for name, d in real.items():
+        for what, v in d.items():
+            if not v[2]:
+                raise RuntimeError(f"{name}.{what} is not finite on the "
+                                   f"first-iteration system")
+    print("first-iteration accuracy " + json.dumps(
+        stage_inverse_accuracy(bk, patr, L.nw, Kr, evr, regr)))
+
+    # 5. Parity against the float64 golden.
+    gap, g_status, g_iters = parity_gap(device)
+    print(f"parity_gap_vs_oracle {gap:.3e} status {g_status} "
+          f"iters {g_iters}")
+    if not gap < PARITY_TOL:
+        raise RuntimeError(f"parity gap {gap:.3e} >= {PARITY_TOL}")
+
+    # 6. The kernels line, then the device line.
+    kernels = []
+    for name in ("factor_se", "fwd_se", "bwd_matvec_se"):
+        b_ms, b_by = bounds[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"obca_torch/solver/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(v[0] for v in synth[name].values()
+                               if isinstance(v, tuple)),
+            "ms": synth[name]["ms"], "plain_ms": synth[name]["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

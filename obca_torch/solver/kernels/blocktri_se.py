@@ -1,0 +1,274 @@
+"""Structured-coupling block-tridiagonal kernels: CUDA wrappers and their
+plain PyTorch versions.
+
+Port of the three kernels that ``obca_tpu.solver.kkt.make_kkt_solver_se``
+runs on every IPM iteration (``obca_tpu/solver/pallas/
+blocktri_kernel.py``: ``factor_batched_se``, ``fwd_se``,
+``bwd_matvec_se``).  The layout is batch-major — K [B, S, nz, nz],
+ev [B, S-1, nnz], vectors [B, S, nz] — which is what the IPM holds, so
+no transposes or padding surround the calls.  The coupling block E_k
+has values ev[:, k] at the static positions (rows, cols).
+
+Each wrapper takes the plain version for a tensor on the CPU.  For a
+CUDA tensor it checks dtype (float32), shape, contiguity and device,
+launches the hand-written kernel on the current stream and counts the
+launch in :data:`launches`, or raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+# Kernel launches since the last reset (only real CUDA launches count).
+launches = {"factor_se": 0, "fwd_se": 0, "bwd_matvec_se": 0}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CouplingPattern:
+    """Static sparsity of E: rows/cols [nnz], the sorted distinct
+    columns ucols [C] and cidx [nnz] (position of cols[j] in ucols)."""
+
+    rows: np.ndarray
+    cols: np.ndarray
+    ucols: np.ndarray
+    cidx: np.ndarray
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @staticmethod
+    def of(rows, cols) -> "CouplingPattern":
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        ucols = np.unique(cols)
+        cidx = np.searchsorted(ucols, cols)
+        return CouplingPattern(rows, cols, ucols, cidx)
+
+    def index(self, device, dtype=torch.int64) -> dict:
+        """The four index arrays as tensors on ``device`` (cached)."""
+        key = (str(device), dtype)
+        if key not in self._cache:
+            self._cache[key] = {
+                n: torch.as_tensor(getattr(self, n), dtype=dtype,
+                                   device=device)
+                for n in ("rows", "cols", "ucols", "cidx")}
+        return self._cache[key]
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU route and the reference on the card).
+# ---------------------------------------------------------------------------
+
+
+def matvec_se(K, ev, pat: CouplingPattern, x):
+    """Block-tridiagonal matvec T x with the coupling as sparse values:
+    K [B, S, nz, nz], ev [B, S-1, nnz], x [B, S, nz]."""
+    ix = pat.index(x.device)
+    out = (K @ x[..., None])[..., 0]
+    # (E_k x_{k+1})[rows_j] += ev_j x_{k+1}[cols_j]
+    out[:, :-1].index_add_(2, ix["rows"], ev * x[:, 1:, ix["cols"]])
+    # (E'_{k-1} x_{k-1})[cols_j] += ev_j x_{k-1}[rows_j]
+    out[:, 1:].index_add_(2, ix["cols"], ev * x[:, :-1, ix["rows"]])
+    return out
+
+
+def factor_se_plain(K, ev, reg, pat: CouplingPattern):
+    """Plain version of :func:`factor_se`: the same Schur recursion, each
+    stage inverted by LU with partial pivoting (``torch.linalg.inv``),
+    the pivoting the kernel's Gauss-Jordan elimination does."""
+    B, S, nz, _ = K.shape
+    ix = pat.index(K.device)
+    C = len(pat.ucols)
+    d = torch.arange(nz, device=K.device)
+    Kr = K.clone()
+    Kr[:, :, d, d] += reg[:, None, :]
+    Sinv = torch.empty_like(K)
+    Wc = torch.empty((B, S - 1, nz, C), dtype=K.dtype, device=K.device)
+    Sinv[:, 0] = torch.linalg.inv(Kr[:, 0])
+    uc = ix["ucols"]
+    for k in range(1, S):
+        evk = ev[:, k - 1]
+        t = Sinv[:, k - 1][:, :, ix["rows"]] * evk[:, None, :]   # [B,nz,nnz]
+        Wk = torch.zeros((B, nz, C), dtype=K.dtype, device=K.device)
+        Wk.index_add_(2, ix["cidx"], t)
+        U = torch.zeros((B, C, C), dtype=K.dtype, device=K.device)
+        U.index_add_(1, ix["cidx"], evk[:, :, None] * Wk[:, ix["rows"], :])
+        Sk = Kr[:, k].clone()
+        Sk[:, uc[:, None], uc[None, :]] -= U
+        Sinv[:, k] = torch.linalg.inv(Sk)
+        Wc[:, k - 1] = Wk
+    return Sinv, Wc
+
+
+def fwd_se_plain(Sinv, ev, r, pat: CouplingPattern):
+    """Plain version of :func:`fwd_se`."""
+    ix = pat.index(r.device)
+    y = torch.empty_like(r)
+    y[:, 0] = (Sinv[:, 0] @ r[:, 0, :, None])[..., 0]
+    for k in range(1, r.shape[1]):
+        t = ev[:, k - 1] * y[:, k - 1][:, ix["rows"]]
+        sub = torch.zeros_like(r[:, k]).index_add_(1, ix["cols"], t)
+        y[:, k] = (Sinv[:, k] @ (r[:, k] - sub)[..., None])[..., 0]
+    return y
+
+
+def bwd_matvec_se_plain(Wc, y, K, ev, pat: CouplingPattern):
+    """Plain version of :func:`bwd_matvec_se`."""
+    ix = pat.index(y.device)
+    S = y.shape[1]
+    p = torch.empty_like(y)
+    p[:, S - 1] = y[:, S - 1]
+    for s in range(S - 2, -1, -1):
+        pu = p[:, s + 1][:, ix["ucols"]]
+        p[:, s] = y[:, s] - (Wc[:, s] @ pu[..., None])[..., 0]
+    return p, matvec_se(K, ev, pat, p)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers.
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "factor_se": ("obca_factor_se_f32",
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "fwd_se": ("obca_fwd_se_f32", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                   _P]),
+    "bwd_matvec_se": ("obca_bwd_matvec_se_f32",
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                       _P, _P]),
+}
+
+
+_entries: dict = {}
+
+
+def _entry(name):
+    """(library, C entry point with its ctypes signature) of a kernel,
+    built and loaded at first use."""
+    if name not in _entries:
+        from obca_torch.solver.kernels import build
+
+        lib = build.load(name)
+        sym, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = (lib, fn)
+    return _entries[name]
+
+
+def _on_cpu(kernel, t):
+    """True for a CPU tensor (plain route); False for a CUDA tensor
+    (kernel route); any other device is refused."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
+def _check_pattern(kernel, pat, nz):
+    """The kernels index with the pattern unchecked: keep it in range."""
+    if min(pat.rows.min(), pat.cols.min()) < 0 or \
+            max(pat.rows.max(), pat.cols.max()) >= nz:
+        raise ValueError(f"{kernel}: coupling pattern outside [0, {nz})")
+
+
+def _check(kernel, what, t, shape, device):
+    if t.device != device:
+        raise ValueError(f"{kernel}: {what} is on {t.device}, "
+                         f"expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{kernel}: {what} must be float32 on CUDA, "
+                        f"got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {what} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {what} must be contiguous")
+
+
+def _launch(name, device, *args):
+    lib, fn = _entry(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    rc = fn(*conv, stream)
+    if rc != 0:
+        msg = lib.obca_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+    launches[name] += 1
+
+
+def factor_se(K, ev, reg, pat: CouplingPattern):
+    """Sparse-coupling factorization.
+
+    K [B, S, nz, nz] UNregularized diagonal blocks, ev [B, S-1, nnz],
+    reg [B, nz] (diagonal regularization added in-kernel).  Returns
+    (Sinv [B, S, nz, nz], Wc [B, S-1, nz, C]) with
+    Wc[:, k][:, :, c] = (S_k^{-1} E_k)[:, ucols[c]] — slot k holds
+    stage k's product.
+    """
+    if _on_cpu("factor_se", K):
+        return factor_se_plain(K, ev, reg, pat)
+    B, S, nz, _ = K.shape
+    nnz, C = len(pat.rows), len(pat.ucols)
+    dev = K.device
+    _check_pattern("factor_se", pat, nz)
+    _check("factor_se", "K", K, (B, S, nz, nz), dev)
+    _check("factor_se", "ev", ev, (B, S - 1, nnz), dev)
+    _check("factor_se", "reg", reg, (B, nz), dev)
+    ix = pat.index(dev, torch.int32)
+    Sinv = torch.empty_like(K)
+    Wc = torch.empty((B, S - 1, nz, C), dtype=K.dtype, device=dev)
+    _launch("factor_se", dev, K, ev, reg, ix["rows"], ix["cidx"],
+            ix["ucols"], B, S, nz, nnz, C, Sinv, Wc)
+    return Sinv, Wc
+
+
+def fwd_se(Sinv, ev, r, pat: CouplingPattern):
+    """Forward substitution y_k = Sinv_k (r_k - E'_{k-1} y_{k-1});
+    Sinv [B, S, nz, nz], ev [B, S-1, nnz], r [B, S, nz] -> y."""
+    if _on_cpu("fwd_se", r):
+        return fwd_se_plain(Sinv, ev, r, pat)
+    B, S, nz = r.shape
+    nnz = len(pat.rows)
+    dev = r.device
+    _check_pattern("fwd_se", pat, nz)
+    _check("fwd_se", "Sinv", Sinv, (B, S, nz, nz), dev)
+    _check("fwd_se", "ev", ev, (B, S - 1, nnz), dev)
+    _check("fwd_se", "r", r, (B, S, nz), dev)
+    ix = pat.index(dev, torch.int32)
+    y = torch.empty_like(r)
+    _launch("fwd_se", dev, Sinv, ev, r, ix["rows"], ix["cols"], B, S, nz,
+            nnz, y)
+    return y
+
+
+def bwd_matvec_se(Wc, y, K, ev, pat: CouplingPattern):
+    """Backward substitution p_s = y_s - Wc_s p_{s+1}[ucols] fused with
+    the true-system matvec Ap = T p (K unregularized).  Returns (p, Ap),
+    each [B, S, nz]."""
+    if _on_cpu("bwd_matvec_se", y):
+        return bwd_matvec_se_plain(Wc, y, K, ev, pat)
+    B, S, nz = y.shape
+    nnz, C = len(pat.rows), len(pat.ucols)
+    dev = y.device
+    _check_pattern("bwd_matvec_se", pat, nz)
+    _check("bwd_matvec_se", "Wc", Wc, (B, S - 1, nz, C), dev)
+    _check("bwd_matvec_se", "y", y, (B, S, nz), dev)
+    _check("bwd_matvec_se", "K", K, (B, S, nz, nz), dev)
+    _check("bwd_matvec_se", "ev", ev, (B, S - 1, nnz), dev)
+    ix = pat.index(dev, torch.int32)
+    p = torch.empty_like(y)
+    Ap = torch.empty_like(y)
+    _launch("bwd_matvec_se", dev, Wc, y, K, ev, ix["rows"], ix["cols"],
+            ix["ucols"], B, S, nz, nnz, C, p, Ap)
+    return p, Ap

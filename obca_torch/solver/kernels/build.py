@@ -1,0 +1,87 @@
+"""Build the CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process into a
+shared library with a plain C interface; all sources are compiled in
+parallel.  Libraries land in ``obca_torch/_build/`` (git-ignored) under
+a name that carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale library is never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+SOURCES = ("factor_se", "fwd_se", "bwd_matvec_se")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or PATH)")
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel whose library is missing, one nvcc per
+    source, all started together.  Returns {name: ptxas report} for the
+    sources compiled by this call; raises with nvcc's output if any
+    compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc rc {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[name] = log
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of kernel library ``name`` (built if needed)."""
+    lib = _libs.get(name)
+    if lib is None:
+        if not _target(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(_target(name)))
+        lib.obca_error_string.argtypes = [ctypes.c_int]
+        lib.obca_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
