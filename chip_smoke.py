@@ -7,26 +7,43 @@ Phases (each prints its own lines; any failure raises and exits
 non-zero, and no result line is printed):
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build the three CUDA kernels from ``obca_torch/solver/kernels/csrc``
+2. build every CUDA kernel source in ``obca_torch/solver/kernels/csrc``
    (one nvcc per source, in parallel) and print the build seconds;
-3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (B=128, S=81, nz=56), on a well-conditioned
-   random quasidefinite system from a numpy seed (relative error must
-   be <= 1e-4) and on the real system of the main path's first IPM
-   iteration (printed); median CUDA-event times over 25 runs each;
-4. the main path as ``bench.py`` builds it: 128 start-pose shifts of
+3. each of the seven kernels against its plain PyTorch version on the
+   card, at the main path's shapes (B=128, S=81, nz=56), on a
+   well-conditioned random quasidefinite system from a numpy seed, with
+   a genuinely dense coupling block for the dense-coupling kernels
+   (relative error must be <= 1e-4), and the structured ones again on
+   the real system of the main path's first IPM iteration (printed);
+   median CUDA-event times over 25 runs each;
+4. the f32 main path as ``bench.py`` builds it: 128 start-pose shifts of
    ``reverse_parking_spec(N=80, Ts=0.3)`` in float32, one shared
    ``lattice.plan_field``, per-lane ``geometric.lattice_warm_start`` and
    ``ipm.solve_batch_rescued`` under ``f32_solver_config(max_iter=55)``
    (rescue mu 1e-5) — one warm-up run, then one timed run between
-   which every kernel's launch count is reset and read (every kernel
-   must have launched), two more timed runs for the spread, and one
-   under torch.profiler for the device's busy share and the kernels
+   which every kernel's launch count is reset and read (its three
+   kernels must have launched), two more timed runs for the spread, and
+   one under torch.profiler for the device's busy share and the kernels
    that take its time;
 5. parity: the golden warm start of
    ``oracle/goldens/reverse_parking_N80.npz`` solved at B=1 under
    ``f32_solver_config()``; max |U - U_gold| must be < 1e-3;
-6. one ``kernels`` JSON line, then the device line, last.
+6d. the dense-coupling solver ``kkt.make_kkt_solver`` against
+   ``kkt.make_kkt_solver_se`` on the f32 first-iteration system (E built
+   from the coupling values), launch counts reset just before: d must be
+   finite and within 1e-3 relative, and the three dense kernels must
+   have launched;
+4m. the mixed-precision main path (``bench.py``'s ``BENCH_DTYPE=mixed``):
+   the same batch in float64 under ``mixed_solver_config(max_iter=55)``,
+   measured as in phase 4; ``factor_se``, ``fwd_se`` and ``bwd_se`` must
+   have launched and ``bwd_matvec_se`` must not; one profiled run; then
+   ``solve_se`` against its plain version on the captured
+   first-iteration system;
+5m. mixed parity: ``reverse_parking_N80`` under ``mixed_solver_config()``
+   and ``reverse_parking_dist_N80`` (unsigned distance) under
+   ``mixed_solver_config(max_iter=200)``; each gap must be < 1e-3;
+6. one ``kernels`` JSON line (launches summed over the counted runs of
+   phases 4, 6d and 4m), then the device line, last.
 
 It imports nothing of JAX and nothing of ``obca_tpu``.
 """
@@ -52,10 +69,17 @@ PEAK_F32_FLOPS = 67e12
 B_MAIN, N_MAIN, TS_MAIN, ITERS_MAIN = 128, 80, 0.3, 55
 SYNTH_TOL = 1e-4
 PARITY_TOL = 1e-3
-REPLACES = {
-    "factor_se": "obca_tpu/solver/pallas/blocktri_kernel.py:404",
-    "fwd_se": "obca_tpu/solver/pallas/blocktri_kernel.py:748",
-    "bwd_matvec_se": "obca_tpu/solver/pallas/blocktri_kernel.py:663",
+DENSE_TOL = 1e-3
+_PALLAS = "obca_tpu/solver/pallas/blocktri_kernel.py"
+# kernel -> (the TPU kernel it replaces, its source in the port)
+KERNELS = {
+    "factor_se": (f"{_PALLAS}:404", "factor_se.cu"),
+    "fwd_se": (f"{_PALLAS}:748", "fwd_se.cu"),
+    "bwd_matvec_se": (f"{_PALLAS}:663", "bwd_matvec_se.cu"),
+    "bwd_se": (f"{_PALLAS}:524", "bwd_se.cu"),
+    "factor_dense": (f"{_PALLAS}:172", "factor_dense.cu"),
+    "fwd_dense": (f"{_PALLAS}:262", "solve_dense.cu"),
+    "bwd_dense": (f"{_PALLAS}:262", "solve_dense.cu"),
 }
 
 
@@ -110,6 +134,13 @@ def synthetic_system(B, S, nw, nc, nnz, seed=0):
     return K, ev, reg, r
 
 
+def synthetic_dense_e(B, S, nz, seed=1):
+    """A genuinely dense coupling block per stage, 0.3 N(0, 1) / sqrt(nz),
+    batch-major numpy f64 [B, S-1, nz, nz]."""
+    rng = np.random.default_rng(seed)
+    return 0.3 * rng.standard_normal((B, S - 1, nz, nz)) / np.sqrt(nz)
+
+
 def kernel_costs(B, S, nz, nnz, C):
     """(bytes, operations) each kernel must at least move / do at these
     shapes: every input read once, every output written once (f32 data,
@@ -119,6 +150,7 @@ def kernel_costs(B, S, nz, nnz, C):
     ev = B * (S - 1) * nnz * f
     vec = B * S * nz * f
     Wc = B * (S - 1) * nz * C * f
+    E = B * (S - 1) * nz * nz * f
     return {
         "factor_se": (
             K + ev + B * nz * f + (2 * nnz + C) * i + K + Wc,
@@ -130,6 +162,19 @@ def kernel_costs(B, S, nz, nnz, C):
         "bwd_matvec_se": (
             Wc + vec + K + ev + (2 * nnz + C) * i + 2 * vec,
             B * S * 2 * nz * nz + B * (S - 1) * (2 * nz * C + 4 * nnz)),
+        "bwd_se": (
+            Wc + vec + C * i + vec,
+            B * (S - 1) * 2 * nz * C),
+        # Two stage products and one stage inverse, 2 nz^3 each.
+        "factor_dense": (
+            K + E + K + E,
+            B * S * 2 * nz ** 3 + B * (S - 1) * 2 * 2 * nz ** 3),
+        "fwd_dense": (
+            K + E + vec + vec,
+            B * S * 2 * nz * nz + B * (S - 1) * 2 * nz * nz),
+        "bwd_dense": (
+            E + vec + vec,
+            B * (S - 1) * 2 * nz * nz),
     }
 
 
@@ -156,17 +201,14 @@ def compare_kernels(bk, pat, K, ev, reg, r, device, timing):
     y_p = bk.fwd_se_plain(Sinv, ev, r, pat)
     p, Ap = bk.bwd_matvec_se(Wc, y, K, ev, pat)
     p_p, Ap_p = bk.bwd_matvec_se_plain(Wc, y, K, ev, pat)
+    q = bk.bwd_se(Wc, y, pat)
+    q_p = bk.bwd_se_plain(Wc, y, pat)
     _sync(device)
-
-    def err(got, want):
-        a = float((got - want).abs().max())
-        return a, a / max(float(want.abs().max()), 1e-30), \
-            bool(torch.isfinite(got).all())
-
     out = {
         "factor_se": {"Sinv": err(Sinv, Sinv_p), "Wc": err(Wc, Wc_p)},
         "fwd_se": {"y": err(y, y_p)},
         "bwd_matvec_se": {"p": err(p, p_p), "Ap": err(Ap, Ap_p)},
+        "bwd_se": {"p": err(q, q_p)},
     }
     if timing:
         calls = {
@@ -177,10 +219,63 @@ def compare_kernels(bk, pat, K, ev, reg, r, device, timing):
             "bwd_matvec_se": (
                 lambda: bk.bwd_matvec_se(Wc, y, K, ev, pat),
                 lambda: bk.bwd_matvec_se_plain(Wc, y, K, ev, pat)),
+            "bwd_se": (lambda: bk.bwd_se(Wc, y, pat),
+                       lambda: bk.bwd_se_plain(Wc, y, pat)),
         }
-        for name, (kern, plain) in calls.items():
-            out[name]["ms"] = time_ms(kern, device)
-            out[name]["plain_ms"] = time_ms(plain, device, runs=20)
+        add_times(out, calls, device)
+    return out
+
+
+def err(got, want):
+    """(max abs error, max abs error / max |want|, got all finite)."""
+    import torch
+
+    a = float((got - want).abs().max())
+    return a, a / max(float(want.abs().max()), 1e-30), \
+        bool(torch.isfinite(got).all())
+
+
+def add_times(out, calls, device):
+    """Median CUDA-event times of each kernel and its plain version."""
+    for name, (kern, plain) in calls.items():
+        out[name]["ms"] = time_ms(kern, device)
+        out[name]["plain_ms"] = time_ms(plain, device, runs=20)
+
+
+def compare_dense_kernels(bd, K, E, reg, r, device, timing):
+    """The dense-coupling kernels against their plain versions on the
+    same inputs (reg added to K's diagonal first, as
+    ``kkt.make_kkt_solver`` does); each kernel's inputs come from the
+    kernel before it."""
+    import torch
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=device).contiguous()
+
+    K, E, reg, r = dev(K), dev(E), dev(reg), dev(r)
+    K = (K + torch.diag_embed(reg)[:, None]).contiguous()
+    Sinv, W = bd.factor_dense(K, E)
+    Sinv_p, W_p = bd.factor_dense_plain(K, E)
+    y = bd.fwd_dense(Sinv, E, r)
+    y_p = bd.fwd_dense_plain(Sinv, E, r)
+    x = bd.bwd_dense(W, y)
+    x_p = bd.bwd_dense_plain(W, y)
+    _sync(device)
+    out = {
+        "factor_dense": {"Sinv": err(Sinv, Sinv_p), "W": err(W, W_p)},
+        "fwd_dense": {"y": err(y, y_p)},
+        "bwd_dense": {"x": err(x, x_p)},
+    }
+    if timing:
+        add_times(out, {
+            "factor_dense": (lambda: bd.factor_dense(K, E),
+                             lambda: bd.factor_dense_plain(K, E)),
+            "fwd_dense": (lambda: bd.fwd_dense(Sinv, E, r),
+                          lambda: bd.fwd_dense_plain(Sinv, E, r)),
+            "bwd_dense": (lambda: bd.bwd_dense(W, y),
+                          lambda: bd.bwd_dense_plain(W, y)),
+        }, device)
     return out
 
 
@@ -192,20 +287,21 @@ def print_errors(label, res):
                       f"max_rel_err {v[1]:.3e} finite {v[2]}")
 
 
-def main_path_batch(device, B=B_MAIN, N=N_MAIN, Ts=TS_MAIN):
+def main_path_batch(device, B=B_MAIN, N=N_MAIN, Ts=TS_MAIN, dtype=None):
     """bench.py's batch: B start-pose shifts of the canonical reverse
-    parking scenario, float32."""
+    parking scenario in ``dtype`` (default float32; float64 is
+    ``BENCH_DTYPE=mixed``).  The shifts are float32 draws, as there."""
     import torch
     from obca_torch import reverse_parking_spec
     from obca_torch import spec as tspec
 
-    base = reverse_parking_spec(N=N, Ts=Ts, dtype=torch.float32,
-                                device=device)
+    dtype = dtype or torch.float32
+    base = reverse_parking_spec(N=N, Ts=Ts, dtype=dtype, device=device)
     shifts = np.random.default_rng(0).uniform(
         -0.5, 0.5, size=(B, 2)).astype(np.float32)
     specs = tspec.stack([
         dataclasses.replace(base, x0=base.x0 + torch.tensor(
-            [dx, dy, 0.0, 0.0], dtype=torch.float32, device=device))
+            [dx, dy, 0.0, 0.0], dtype=dtype, device=device))
         for dx, dy in shifts])
     return base, specs
 
@@ -213,7 +309,6 @@ def main_path_batch(device, B=B_MAIN, N=N_MAIN, Ts=TS_MAIN):
 def run_main_path(base, specs, cfg):
     """plan_field -> lattice_warm_start -> solve_batch_rescued; returns
     the result and the seconds of each stage."""
-    import torch
     from obca_torch.solver import ipm
     from obca_torch.warmstart import geometric, lattice
 
@@ -223,7 +318,7 @@ def run_main_path(base, specs, cfg):
     field = lattice.plan_field(base, lcfg)
     _sync(dev)
     t.append(time.perf_counter())
-    W0 = geometric.lattice_warm_start(specs, dtype=torch.float32, cfg=lcfg,
+    W0 = geometric.lattice_warm_start(specs, dtype=base.x0.dtype, cfg=lcfg,
                                       field=field)
     _sync(dev)
     t.append(time.perf_counter())
@@ -323,19 +418,105 @@ def device_profile(fn):
                          e.count) for e in top]
 
 
-def parity_gap(device):
+def parity_gap(device, golden, cfg, signed=True):
+    """max |U - U_gold| of ``cfg``'s solve of one golden instance from its
+    warm start, in the configuration's iterate dtype, with the solve's
+    status and iterations."""
     import torch
-    from obca_torch import f32_solver_config, reverse_parking_spec
+    from obca_torch import reverse_parking_spec
     from obca_torch.solver import ipm
 
     gold = np.load(os.path.join(ROOT, "oracle", "goldens",
-                                "reverse_parking_N80.npz"))
+                                f"{golden}.npz"))
     spec = reverse_parking_spec(N=int(gold["N"]), Ts=float(gold["Ts"]),
-                                dtype=torch.float32, device=device)
-    W0 = torch.as_tensor(gold["W0"], dtype=torch.float32, device=device)
-    res = ipm.solve_single(spec, f32_solver_config(), W0)
+                                signed=signed, dtype=cfg.dtype,
+                                device=device)
+    W0 = torch.as_tensor(gold["W0"], dtype=cfg.dtype, device=device)
+    res = ipm.solve_single(spec, cfg, W0)
     gap = float(np.abs(res.U.double().cpu().numpy() - gold["U"]).max())
     return gap, int(res.status), int(res.iters)
+
+
+def measure_main_path(bk, base, specs, cfg):
+    """One warm-up run (which captures the first IPM iteration's
+    system), the counted run (every launch count set to 0 just before it
+    and read just after), then two more timed runs.  Returns (summary,
+    the capture)."""
+    import torch
+    from obca_torch.solver import ipm
+
+    with FirstIterationCapture(bk) as cap:
+        _, warm_secs = run_main_path(base, specs, cfg)
+    bk.reset_launches()
+    res, secs = run_main_path(base, specs, cfg)
+    launches = dict(bk.launches)
+    walls = [secs["wall_s"]] + [run_main_path(base, specs, cfg)[1]["wall_s"]
+                                for _ in range(2)]
+    status = res.status.cpu().numpy()
+    iters = res.iters.cpu().numpy()
+    n_conv = int((status == ipm.STATUS_CONVERGED).sum())
+    B, N = specs.x0.shape[0], base.N
+    if not torch.isfinite(res.U).all():
+        raise RuntimeError("main path returned non-finite controls")
+    if res.U.shape != (B, N, 2):
+        raise RuntimeError(f"main path U has shape {tuple(res.U.shape)}")
+    main = {
+        "B": B, "N": N, "dtype": str(base.x0.dtype).replace("torch.", ""),
+        "converged": n_conv,
+        "status_counts": {int(k): int(v) for k, v in
+                          zip(*np.unique(status, return_counts=True))},
+        "iters_median": float(np.median(iters)),
+        "iters_max": int(iters.max()),
+        "warmup_wall_s": warm_secs["wall_s"],
+        **{k: round(v, 4) for k, v in secs.items()},
+        "solves_per_s": B / secs["wall_s"],
+        "converged_solves_per_s": n_conv / secs["wall_s"],
+        "wall_s_runs": walls,
+        "converged_solves_per_s_median": n_conv / statistics.median(walls),
+        "launches": launches,
+    }
+    return main, cap
+
+
+def print_profile(label, base, specs, cfg, wall_median):
+    p_wall, p_busy, p_top = device_profile(
+        lambda: run_main_path(base, specs, cfg))
+    if p_busy > 0:
+        print(f"profiled {label}: wall {p_wall:.3f} s, device busy "
+              f"{p_busy:.3f} s ({100 * p_busy / wall_median:.1f}% of the "
+              f"unprofiled median wall {wall_median:.3f} s)")
+        for name, ms, calls in p_top:
+            print(f"  device {ms:9.2f} ms  {calls:6d} calls  {name}")
+    else:
+        print(f"profiled {label}: device time not measured (the "
+              "profiler recorded no CUDA kernels)")
+
+
+def dense_vs_structured(bk, nw, rows, cols, K, ev, reg, rhs):
+    """The dense-coupling solver against the structured one on the same
+    float32 system, E built from ev at (rows, cols).  Returns the max
+    relative difference of d, both solves' max linear residuals and
+    whether d is finite."""
+    import torch
+    from obca_torch.solver import kkt
+
+    B, S, nz, _ = K.shape
+    E = torch.zeros((B, S - 1, nz, nz), dtype=K.dtype, device=K.device)
+    E[:, :, torch.as_tensor(rows, device=K.device),
+      torch.as_tensor(cols, device=K.device)] = ev
+    f32 = torch.float32
+    d_dense, lin_dense = kkt.make_kkt_solver(nw, 4, f32, f32)(K, E, reg,
+                                                              rhs)
+    d_se, lin_se = kkt.make_kkt_solver_se(nw, 4, f32, f32, rows, cols)(
+        K, ev, reg, rhs)
+    _sync(K.device)
+    return {
+        "d_rel_diff": float((d_dense - d_se).abs().max()
+                            / d_se.abs().max()),
+        "lin_res_dense_max": float(lin_dense.max()),
+        "lin_res_structured_max": float(lin_se.max()),
+        "finite": bool(torch.isfinite(d_dense).all()),
+    }
 
 
 def main():
@@ -344,8 +525,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, ROOT)
-    from obca_torch import f32_solver_config, nlp
-    from obca_torch.solver import ipm
+    from obca_torch import f32_solver_config, mixed_solver_config, nlp
+    from obca_torch.solver.kernels import blocktri_dense as bd
     from obca_torch.solver.kernels import blocktri_se as bk
     from obca_torch.solver.kernels import build
 
@@ -369,15 +550,19 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
-    # 3a. Kernels against their plain versions: synthetic system.
+    # 3a. Kernels against their plain versions: synthetic systems.
     base, specs = main_path_batch(device)
     L = nlp.layout_of(base)
     rows, cols = nlp.coupling_structure(L)
     pat = bk.CouplingPattern.of(rows, cols)
     S, nz, nnz, C = L.N + 1, L.nz, len(rows), len(pat.ucols)
-    synth = compare_kernels(bk, pat,
-                            *synthetic_system(B_MAIN, S, L.nw, L.nc, nnz),
-                            device, timing=True)
+    K_syn, ev_syn, reg_syn, r_syn = synthetic_system(B_MAIN, S, L.nw, L.nc,
+                                                     nnz)
+    synth = compare_kernels(bk, pat, K_syn, ev_syn, reg_syn, r_syn, device,
+                            timing=True)
+    synth.update(compare_dense_kernels(
+        bd, K_syn, synthetic_dense_e(B_MAIN, S, nz), reg_syn, r_syn, device,
+        timing=True))
     print_errors("synthetic", synth)
     bounds = {name: bound_ms(*c)
               for name, c in kernel_costs(B_MAIN, S, nz, nnz, C).items()}
@@ -390,54 +575,25 @@ def main():
         print(f"time {name}: kernel {d['ms']:.4f} ms, plain "
               f"{d['plain_ms']:.4f} ms, bound {bounds[name][0]:.4f} ms "
               f"({bounds[name][1]})")
+    launches = {name: 0 for name in KERNELS}
 
-    # 4. The main path: warm-up run (also captures the first IPM
-    # iteration's system), then the counted, timed run.
+    # 4. The f32 main path.
     cfg = f32_solver_config(max_iter=ITERS_MAIN)
-    with FirstIterationCapture(bk) as cap:
-        _, warm_secs = run_main_path(base, specs, cfg)
-    print(f"main path warm-up wall_s {warm_secs['wall_s']:.3f}")
-    bk.reset_launches()
-    res, secs = run_main_path(base, specs, cfg)
-    launches = dict(bk.launches)
-    walls = [secs["wall_s"]] + [run_main_path(base, specs, cfg)[1]["wall_s"]
-                                for _ in range(2)]
-    status = res.status.cpu().numpy()
-    iters = res.iters.cpu().numpy()
-    n_conv = int((status == ipm.STATUS_CONVERGED).sum())
-    if not torch.isfinite(res.U).all():
-        raise RuntimeError("main path returned non-finite controls")
-    if res.U.shape != (B_MAIN, N_MAIN, 2):
-        raise RuntimeError(f"main path U has shape {tuple(res.U.shape)}")
-    main = {
-        "B": B_MAIN, "N": N_MAIN, "converged": n_conv,
-        "iters_median": float(np.median(iters)),
-        "iters_max": int(iters.max()),
-        **{k: round(v, 4) for k, v in secs.items()},
-        "solves_per_s": B_MAIN / secs["wall_s"],
-        "converged_solves_per_s": n_conv / secs["wall_s"],
-        "wall_s_runs": walls,
-        "converged_solves_per_s_median": n_conv / statistics.median(walls),
-        "launches": launches,
-    }
-    print("main_path " + json.dumps(main))
-    for name, n in launches.items():
-        if n <= 0:
+    main_f32, cap = measure_main_path(bk, base, specs, cfg)
+    print("main_path " + json.dumps(main_f32))
+    for name in ("factor_se", "fwd_se", "bwd_matvec_se"):
+        if main_f32["launches"][name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the "
                                f"main path")
-    kernel_s = sum(launches[n] * synth[n]["ms"] for n in launches) / 1e3
-    print(f"main path: kernels ~{kernel_s:.3f} s of {secs['wall_s']:.3f} s "
-          f"wall (launches x synthetic median time)")
-    p_wall, p_busy, p_top = device_profile(
-        lambda: run_main_path(base, specs, cfg))
-    if p_busy > 0:
-        print(f"profiled main path: wall {p_wall:.3f} s, device busy "
-              f"{p_busy:.3f} s ({100 * p_busy / p_wall:.1f}%)")
-        for name, ms, calls in p_top:
-            print(f"  device {ms:9.2f} ms  {calls:6d} calls  {name}")
-    else:
-        print("profiled main path: device time not measured (the "
-              "profiler recorded no CUDA kernels)")
+    for name, n in main_f32["launches"].items():
+        launches[name] += n
+    kernel_s = sum(n * synth[k]["ms"]
+                   for k, n in main_f32["launches"].items()) / 1e3
+    print(f"main path: kernels ~{kernel_s:.3f} s of "
+          f"{main_f32['wall_s']:.3f} s wall (launches x synthetic median "
+          f"time)")
+    print_profile("main path", base, specs, cfg,
+                  statistics.median(main_f32["wall_s_runs"]))
 
     # 3b. Kernels against their plain versions: the main path's real
     # first-iteration system (Ruiz-scaled, as the solver factors it).
@@ -454,20 +610,74 @@ def main():
         stage_inverse_accuracy(bk, patr, L.nw, Kr, evr, regr)))
 
     # 5. Parity against the float64 golden.
-    gap, g_status, g_iters = parity_gap(device)
+    gap, g_status, g_iters = parity_gap(device, "reverse_parking_N80",
+                                        f32_solver_config())
     print(f"parity_gap_vs_oracle {gap:.3e} status {g_status} "
           f"iters {g_iters}")
     if not gap < PARITY_TOL:
         raise RuntimeError(f"parity gap {gap:.3e} >= {PARITY_TOL}")
 
+    # 6d. The dense-coupling solver against the structured one on the
+    # f32 main path's first-iteration system.
+    bk.reset_launches()
+    dense = dense_vs_structured(bk, L.nw, rows, cols, Kr, evr, regr,
+                                cap.rhs)
+    dense["launches"] = dict(bk.launches)
+    print("dense_vs_structured " + json.dumps(dense))
+    if not dense["finite"] or not dense["d_rel_diff"] <= DENSE_TOL:
+        raise RuntimeError(f"dense-coupling solve disagrees: {dense}")
+    for name in ("factor_dense", "fwd_dense", "bwd_dense"):
+        if dense["launches"][name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by "
+                               f"make_kkt_solver")
+    for name, n in dense["launches"].items():
+        launches[name] += n
+
+    # 4m. The mixed-precision main path (bench.py's BENCH_DTYPE=mixed).
+    base64, specs64 = main_path_batch(device, dtype=torch.float64)
+    cfg_m = mixed_solver_config(max_iter=ITERS_MAIN)
+    main_m, cap_m = measure_main_path(bk, base64, specs64, cfg_m)
+    print("main_path_mixed " + json.dumps(main_m))
+    lm = main_m["launches"]
+    if min(lm["factor_se"], lm["fwd_se"], lm["bwd_se"]) <= 0 \
+            or lm["bwd_matvec_se"] != 0:
+        raise RuntimeError(f"the mixed route did not run: launches {lm}")
+    for name, n in lm.items():
+        launches[name] += n
+    print_profile("mixed main path", base64, specs64, cfg_m,
+                  statistics.median(main_m["wall_s_runs"]))
+    Km, evm, regm, patm = cap_m.system
+    Sinv_m, Wc_m = bk.factor_se(Km, evm, regm, patm)
+    x_m = bk.solve_se(Sinv_m, Wc_m, evm, cap_m.rhs, patm)
+    x_mp = bk.solve_se_plain(Sinv_m, Wc_m, evm, cap_m.rhs, patm)
+    _sync(device)
+    solve_err = err(x_m, x_mp)
+    print(f"mixed first-iteration solve_se: max_abs_err {solve_err[0]:.3e} "
+          f"max_rel_err {solve_err[1]:.3e} finite {solve_err[2]}")
+    if not solve_err[2] or solve_err[1] > SYNTH_TOL:
+        raise RuntimeError(f"solve_se disagrees with its plain version on "
+                           f"the mixed first-iteration system: {solve_err}")
+
+    # 5m. Mixed parity against the float64 goldens.
+    for golden, cfg_p, signed in (
+            ("reverse_parking_N80", mixed_solver_config(), True),
+            ("reverse_parking_dist_N80", mixed_solver_config(max_iter=200),
+             False)):
+        gap, g_status, g_iters = parity_gap(device, golden, cfg_p, signed)
+        print(f"mixed_parity_gap {golden} {gap:.3e} status {g_status} "
+              f"iters {g_iters}")
+        if not gap < PARITY_TOL:
+            raise RuntimeError(f"mixed parity gap {golden} {gap:.3e} >= "
+                               f"{PARITY_TOL}")
+
     # 6. The kernels line, then the device line.
     kernels = []
-    for name in ("factor_se", "fwd_se", "bwd_matvec_se"):
+    for name, (replaces, source) in KERNELS.items():
         b_ms, b_by = bounds[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"obca_torch/solver/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "source": f"obca_torch/solver/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(v[0] for v in synth[name].values()
                                if isinstance(v, tuple)),
             "ms": synth[name]["ms"], "plain_ms": synth[name]["plain_ms"],

@@ -12,7 +12,9 @@ explicit Schur-complement inverses; fwd/bwd substitution; GCR(m)
 refinement against the true system.  The hot path does not come here
 (it runs the structured-coupling kernels of
 ``obca_torch.solver.kernels``); this dense-coupling twin of the JAX
-module is the reference those kernels are held against in the tests.
+module is the reference those kernels are held against in the tests,
+and with the LU inverse (``nw=None``) it is the plain version of the
+dense-coupling kernels (``kernels.blocktri_dense``).
 """
 
 from __future__ import annotations
@@ -104,18 +106,26 @@ def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
 
-def solve(fac: BlockTriFactor, r):
-    """Solve T x = r for r [B, S, nz] given a factorization."""
-    Sinv, W, E = fac
-    S = r.shape[1]
+def fwd_subst(Sinv, E, r):
+    """Forward substitution y_k = Sinv_k (r_k - E'_{k-1} y_{k-1})."""
     ys = [_mv(Sinv[:, 0], r[:, 0])]
-    for k in range(1, S):
+    for k in range(1, r.shape[1]):
         yhat = r[:, k] - _mv(E[:, k - 1].transpose(-1, -2), ys[-1])
         ys.append(_mv(Sinv[:, k], yhat))
-    xs = [ys[-1]]
-    for k in range(S - 2, -1, -1):
-        xs.append(ys[k] - _mv(W[:, k], xs[-1]))
+    return torch.stack(ys, 1)
+
+
+def bwd_subst(W, y):
+    """Backward substitution x_{S-1} = y_{S-1}, x_k = y_k - W_k x_{k+1}."""
+    xs = [y[:, -1]]
+    for k in range(y.shape[1] - 2, -1, -1):
+        xs.append(y[:, k] - _mv(W[:, k], xs[-1]))
     return torch.stack(xs[::-1], 1)
+
+
+def solve(fac: BlockTriFactor, r):
+    """Solve T x = r for r [B, S, nz] given a factorization."""
+    return bwd_subst(fac.W, fwd_subst(fac.Sinv, fac.E, r))
 
 
 def matvec(K, E, x):

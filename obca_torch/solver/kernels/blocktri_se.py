@@ -1,10 +1,12 @@
 """Structured-coupling block-tridiagonal kernels: CUDA wrappers and their
 plain PyTorch versions.
 
-Port of the three kernels that ``obca_tpu.solver.kkt.make_kkt_solver_se``
+Port of the kernels that ``obca_tpu.solver.kkt.make_kkt_solver_se``
 runs on every IPM iteration (``obca_tpu/solver/pallas/
 blocktri_kernel.py``: ``factor_batched_se``, ``fwd_se``,
-``bwd_matvec_se``).  The layout is batch-major — K [B, S, nz, nz],
+``bwd_matvec_se`` on the single-precision route, and
+``solve_batched_se`` — ``fwd_se`` then ``bwd_se`` here — on the
+mixed-precision route).  The layout is batch-major — K [B, S, nz, nz],
 ev [B, S-1, nnz], vectors [B, S, nz] — which is what the IPM holds, so
 no transposes or padding surround the calls.  The coupling block E_k
 has values ev[:, k] at the static positions (rows, cols).
@@ -17,19 +19,14 @@ launch in :data:`launches`, or raises; it never falls back.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
-# Kernel launches since the last reset (only real CUDA launches count).
-launches = {"factor_se": 0, "fwd_se": 0, "bwd_matvec_se": 0}
-
-
-def reset_launches():
-    for k in launches:
-        launches[k] = 0
+# launches and reset_launches are re-exported: one count for all kernels.
+from obca_torch.solver.kernels.runtime import (  # noqa: F401
+    check, launch, launches, on_cpu, reset_launches)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -119,8 +116,8 @@ def fwd_se_plain(Sinv, ev, r, pat: CouplingPattern):
     return y
 
 
-def bwd_matvec_se_plain(Wc, y, K, ev, pat: CouplingPattern):
-    """Plain version of :func:`bwd_matvec_se`."""
+def bwd_se_plain(Wc, y, pat: CouplingPattern):
+    """Plain version of :func:`bwd_se`."""
     ix = pat.index(y.device)
     S = y.shape[1]
     p = torch.empty_like(y)
@@ -128,50 +125,23 @@ def bwd_matvec_se_plain(Wc, y, K, ev, pat: CouplingPattern):
     for s in range(S - 2, -1, -1):
         pu = p[:, s + 1][:, ix["ucols"]]
         p[:, s] = y[:, s] - (Wc[:, s] @ pu[..., None])[..., 0]
+    return p
+
+
+def bwd_matvec_se_plain(Wc, y, K, ev, pat: CouplingPattern):
+    """Plain version of :func:`bwd_matvec_se`."""
+    p = bwd_se_plain(Wc, y, pat)
     return p, matvec_se(K, ev, pat, p)
+
+
+def solve_se_plain(Sinv, Wc, ev, r, pat: CouplingPattern):
+    """Plain version of :func:`solve_se`."""
+    return bwd_se_plain(Wc, fwd_se_plain(Sinv, ev, r, pat), pat)
 
 
 # ---------------------------------------------------------------------------
 # CUDA wrappers.
 # ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
-    "factor_se": ("obca_factor_se_f32",
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]),
-    "fwd_se": ("obca_fwd_se_f32", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                                   _P]),
-    "bwd_matvec_se": ("obca_bwd_matvec_se_f32",
-                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                       _P, _P]),
-}
-
-
-_entries: dict = {}
-
-
-def _entry(name):
-    """(library, C entry point with its ctypes signature) of a kernel,
-    built and loaded at first use."""
-    if name not in _entries:
-        from obca_torch.solver.kernels import build
-
-        lib = build.load(name)
-        sym, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _entries[name] = (lib, fn)
-    return _entries[name]
-
-
-def _on_cpu(kernel, t):
-    """True for a CPU tensor (plain route); False for a CUDA tensor
-    (kernel route); any other device is refused."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{kernel}: unsupported device {t.device}")
-    return t.device.type == "cpu"
 
 
 def _check_pattern(kernel, pat, nz):
@@ -179,32 +149,6 @@ def _check_pattern(kernel, pat, nz):
     if min(pat.rows.min(), pat.cols.min()) < 0 or \
             max(pat.rows.max(), pat.cols.max()) >= nz:
         raise ValueError(f"{kernel}: coupling pattern outside [0, {nz})")
-
-
-def _check(kernel, what, t, shape, device):
-    if t.device != device:
-        raise ValueError(f"{kernel}: {what} is on {t.device}, "
-                         f"expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{kernel}: {what} must be float32 on CUDA, "
-                        f"got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{kernel}: {what} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{kernel}: {what} must be contiguous")
-
-
-def _launch(name, device, *args):
-    lib, fn = _entry(name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args]
-    rc = fn(*conv, stream)
-    if rc != 0:
-        msg = lib.obca_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
-    launches[name] += 1
 
 
 def factor_se(K, ev, reg, pat: CouplingPattern):
@@ -216,39 +160,39 @@ def factor_se(K, ev, reg, pat: CouplingPattern):
     Wc[:, k][:, :, c] = (S_k^{-1} E_k)[:, ucols[c]] — slot k holds
     stage k's product.
     """
-    if _on_cpu("factor_se", K):
+    if on_cpu("factor_se", K):
         return factor_se_plain(K, ev, reg, pat)
     B, S, nz, _ = K.shape
     nnz, C = len(pat.rows), len(pat.ucols)
     dev = K.device
     _check_pattern("factor_se", pat, nz)
-    _check("factor_se", "K", K, (B, S, nz, nz), dev)
-    _check("factor_se", "ev", ev, (B, S - 1, nnz), dev)
-    _check("factor_se", "reg", reg, (B, nz), dev)
+    check("factor_se", "K", K, (B, S, nz, nz), dev)
+    check("factor_se", "ev", ev, (B, S - 1, nnz), dev)
+    check("factor_se", "reg", reg, (B, nz), dev)
     ix = pat.index(dev, torch.int32)
     Sinv = torch.empty_like(K)
     Wc = torch.empty((B, S - 1, nz, C), dtype=K.dtype, device=dev)
-    _launch("factor_se", dev, K, ev, reg, ix["rows"], ix["cidx"],
-            ix["ucols"], B, S, nz, nnz, C, Sinv, Wc)
+    launch("factor_se", dev, K, ev, reg, ix["rows"], ix["cidx"],
+           ix["ucols"], B, S, nz, nnz, C, Sinv, Wc)
     return Sinv, Wc
 
 
 def fwd_se(Sinv, ev, r, pat: CouplingPattern):
     """Forward substitution y_k = Sinv_k (r_k - E'_{k-1} y_{k-1});
     Sinv [B, S, nz, nz], ev [B, S-1, nnz], r [B, S, nz] -> y."""
-    if _on_cpu("fwd_se", r):
+    if on_cpu("fwd_se", r):
         return fwd_se_plain(Sinv, ev, r, pat)
     B, S, nz = r.shape
     nnz = len(pat.rows)
     dev = r.device
     _check_pattern("fwd_se", pat, nz)
-    _check("fwd_se", "Sinv", Sinv, (B, S, nz, nz), dev)
-    _check("fwd_se", "ev", ev, (B, S - 1, nnz), dev)
-    _check("fwd_se", "r", r, (B, S, nz), dev)
+    check("fwd_se", "Sinv", Sinv, (B, S, nz, nz), dev)
+    check("fwd_se", "ev", ev, (B, S - 1, nnz), dev)
+    check("fwd_se", "r", r, (B, S, nz), dev)
     ix = pat.index(dev, torch.int32)
     y = torch.empty_like(r)
-    _launch("fwd_se", dev, Sinv, ev, r, ix["rows"], ix["cols"], B, S, nz,
-            nnz, y)
+    launch("fwd_se", dev, Sinv, ev, r, ix["rows"], ix["cols"], B, S, nz,
+           nnz, y)
     return y
 
 
@@ -256,19 +200,44 @@ def bwd_matvec_se(Wc, y, K, ev, pat: CouplingPattern):
     """Backward substitution p_s = y_s - Wc_s p_{s+1}[ucols] fused with
     the true-system matvec Ap = T p (K unregularized).  Returns (p, Ap),
     each [B, S, nz]."""
-    if _on_cpu("bwd_matvec_se", y):
+    if on_cpu("bwd_matvec_se", y):
         return bwd_matvec_se_plain(Wc, y, K, ev, pat)
     B, S, nz = y.shape
     nnz, C = len(pat.rows), len(pat.ucols)
     dev = y.device
     _check_pattern("bwd_matvec_se", pat, nz)
-    _check("bwd_matvec_se", "Wc", Wc, (B, S - 1, nz, C), dev)
-    _check("bwd_matvec_se", "y", y, (B, S, nz), dev)
-    _check("bwd_matvec_se", "K", K, (B, S, nz, nz), dev)
-    _check("bwd_matvec_se", "ev", ev, (B, S - 1, nnz), dev)
+    check("bwd_matvec_se", "Wc", Wc, (B, S - 1, nz, C), dev)
+    check("bwd_matvec_se", "y", y, (B, S, nz), dev)
+    check("bwd_matvec_se", "K", K, (B, S, nz, nz), dev)
+    check("bwd_matvec_se", "ev", ev, (B, S - 1, nnz), dev)
     ix = pat.index(dev, torch.int32)
     p = torch.empty_like(y)
     Ap = torch.empty_like(y)
-    _launch("bwd_matvec_se", dev, Wc, y, K, ev, ix["rows"], ix["cols"],
-            ix["ucols"], B, S, nz, nnz, C, p, Ap)
+    launch("bwd_matvec_se", dev, Wc, y, K, ev, ix["rows"], ix["cols"],
+           ix["ucols"], B, S, nz, nnz, C, p, Ap)
     return p, Ap
+
+
+def bwd_se(Wc, y, pat: CouplingPattern):
+    """Backward substitution p_{S-1} = y_{S-1},
+    p_s = y_s - Wc_s p_{s+1}[ucols]; Wc [B, S-1, nz, C], y [B, S, nz]
+    -> p [B, S, nz]."""
+    if on_cpu("bwd_se", y):
+        return bwd_se_plain(Wc, y, pat)
+    B, S, nz = y.shape
+    C = len(pat.ucols)
+    dev = y.device
+    _check_pattern("bwd_se", pat, nz)
+    check("bwd_se", "Wc", Wc, (B, S - 1, nz, C), dev)
+    check("bwd_se", "y", y, (B, S, nz), dev)
+    ix = pat.index(dev, torch.int32)
+    p = torch.empty_like(y)
+    launch("bwd_se", dev, Wc, y, ix["ucols"], B, S, nz, C, p)
+    return p
+
+
+def solve_se(Sinv, Wc, ev, r, pat: CouplingPattern):
+    """Solve T x = r through the factor (Sinv, Wc) of
+    :func:`factor_se`: :func:`fwd_se`, then :func:`bwd_se`.  The
+    counterpart of the TPU's ``solve_batched_se``."""
+    return bwd_se(Wc, fwd_se(Sinv, ev, r, pat), pat)

@@ -165,9 +165,10 @@ def _cfg(**kw) -> SolverConfig:
 
 def mixed_solver_config(max_iter: int = 100, tol: float = 1e-6,
                         **overrides) -> SolverConfig:
-    """f64 iterate with an f32 factorization recovered by refinement.
-    Its batched CUDA route needs the ``solve_batched_se`` kernel, which
-    is not ported yet (see ROADMAP.md); the CPU route runs."""
+    """f64 iterate with an f32 factorization recovered by refinement:
+    the factor and its substitutions run in f32 (on the card, the
+    ``factor_se``, ``fwd_se`` and ``bwd_se`` kernels), GCR and its
+    matvec in f64.  The accuracy-grade configuration (SOC on)."""
     kw = dict(dtype=torch.float64, factor_dtype=torch.float32,
               residual_dtype=torch.float64, tol=tol, delta_factor=1e-4,
               refine_iters=4, max_iter=max_iter)

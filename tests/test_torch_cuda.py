@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from obca_torch.solver import kkt
+from obca_torch.solver.kernels import blocktri_dense as bd
 from obca_torch.solver.kernels import blocktri_se as bk
 
 S, NW, NC, B = 9, 6, 5, 3
@@ -68,7 +70,7 @@ def test_cuda_kernels_match_plain(system, cuda):
                       (Ap, Ap_p)):
         err = (got - want).abs().max() / want.abs().max()
         assert float(err) <= 1e-4
-    for name in bk.launches:
+    for name in ("factor_se", "fwd_se", "bwd_matvec_se"):
         assert bk.launches[name] == before[name] + 1
 
 
@@ -90,3 +92,88 @@ def test_cuda_wrappers_refuse_bad_inputs(system, cuda):
     with pytest.raises(ValueError, match="shape"):
         bk.fwd_se(K64.float(), ev64.float()[:, 1:].contiguous(),
                   torch.zeros((B, S, NZ), device=cuda), pat)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.fixture(scope="module")
+def dense_e():
+    """A genuinely dense coupling block per stage, 0.3 N(0, 1) / sqrt(nz)."""
+    rng = np.random.default_rng(1)
+    return 0.3 * rng.standard_normal((B, S - 1, NZ, NZ)) / np.sqrt(NZ)
+
+
+@pytest.mark.gpu
+def test_cuda_mixed_solve_kernels_match_plain(system, cuda):
+    """bwd_se and solve_se (fwd_se then bwd_se) within 1e-4 relative of
+    their plain versions in float32; one bwd_se launch per call."""
+    K, ev, reg, r = (_f32(a, cuda) for a in system)
+    pat = bk.CouplingPattern.of(ROWS, COLS)
+    Sinv, Wc = bk.factor_se(K, ev, reg, pat)
+    y = bk.fwd_se(Sinv, ev, r, pat)
+    before = dict(bk.launches)
+    p = bk.bwd_se(Wc, y, pat)
+    x = bk.solve_se(Sinv, Wc, ev, r, pat)
+    torch.cuda.synchronize()
+    assert _rel(p, bk.bwd_se_plain(Wc, y, pat)) <= 1e-4
+    assert _rel(x, bk.solve_se_plain(Sinv, Wc, ev, r, pat)) <= 1e-4
+    assert bk.launches["bwd_se"] == before["bwd_se"] + 2
+    assert bk.launches["fwd_se"] == before["fwd_se"] + 1
+
+
+@pytest.mark.gpu
+def test_cuda_dense_kernels_match_plain(system, dense_e, cuda):
+    """factor_dense, fwd_dense and bwd_dense within 1e-4 relative of
+    their plain versions in float32, on a dense coupling block."""
+    K, _, reg, r = (_f32(a, cuda) for a in system)
+    E = _f32(dense_e, cuda)
+    K = (K + torch.diag_embed(reg)[:, None]).contiguous()
+    before = dict(bk.launches)
+    Sinv, W = bd.factor_dense(K, E)
+    y = bd.fwd_dense(Sinv, E, r)
+    x = bd.bwd_dense(W, y)
+    torch.cuda.synchronize()
+    Sinv_p, W_p = bd.factor_dense_plain(K, E)
+    assert _rel(Sinv, Sinv_p) <= 1e-4
+    assert _rel(W, W_p) <= 1e-4
+    assert _rel(y, bd.fwd_dense_plain(Sinv, E, r)) <= 1e-4
+    assert _rel(x, bd.bwd_dense_plain(W, y)) <= 1e-4
+    for name in ("factor_dense", "fwd_dense", "bwd_dense"):
+        assert bk.launches[name] == before[name] + 1
+
+
+@pytest.mark.gpu
+def test_cuda_mixed_kkt_solver_se_runs_bwd_se(system, cuda):
+    """The mixed route on the card: f64 in, f64 out, through fwd_se and
+    bwd_se (not the fused bwd_matvec_se), and as exact as on the CPU."""
+    K, ev, reg, r = (torch.tensor(a, device=cuda) for a in system)
+    solve = kkt.make_kkt_solver_se(NW, 4, torch.float32, torch.float64,
+                                   ROWS, COLS)
+    before = dict(bk.launches)
+    d, lin = solve(K, ev, reg, r)
+    torch.cuda.synchronize()
+    assert d.dtype == torch.float64 and lin.dtype == torch.float64
+    assert bk.launches["bwd_se"] == before["bwd_se"] + 4
+    assert bk.launches["bwd_matvec_se"] == before["bwd_matvec_se"]
+    d_cpu, _ = solve(*(t.cpu() for t in (K, ev, reg, r)))
+    assert _rel(d.cpu(), d_cpu) <= 1e-8
+    assert float(lin.max()) <= 1e-8
+
+
+@pytest.mark.gpu
+def test_cuda_dense_kernels_refuse_float64(system, dense_e, cuda):
+    """The dense kernels take float32 only on the card: a float64 input
+    raises TypeError, and so does make_kkt_solver(f64, f64)."""
+    K, _, reg, r = (torch.tensor(a, device=cuda) for a in system)
+    E = torch.tensor(dense_e, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        bd.factor_dense(K, E)
+    with pytest.raises(TypeError, match="float32"):
+        bd.fwd_dense(K, E, r)
+    with pytest.raises(TypeError, match="float32"):
+        bd.bwd_dense(E, r)
+    solve = kkt.make_kkt_solver(NW, 4, torch.float64, torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        solve(K, E, reg, r)
