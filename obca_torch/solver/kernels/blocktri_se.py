@@ -28,6 +28,10 @@ import torch
 from obca_torch.solver.kernels.runtime import (  # noqa: F401
     check, launch, launches, on_cpu, reset_launches)
 
+# The largest stage size nz that the factor_se and fwd_se kernels take
+# (kNzMax in their sources); a larger nz on the card raises.
+NZ_MAX = 64
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class CouplingPattern:
@@ -151,6 +155,12 @@ def _check_pattern(kernel, pat, nz):
         raise ValueError(f"{kernel}: coupling pattern outside [0, {nz})")
 
 
+def _check_nz(kernel, nz):
+    if nz > NZ_MAX:
+        raise ValueError(f"{kernel}: nz={nz} is above the kernel's cap "
+                         f"NZ_MAX={NZ_MAX}")
+
+
 def factor_se(K, ev, reg, pat: CouplingPattern):
     """Sparse-coupling factorization.
 
@@ -165,6 +175,7 @@ def factor_se(K, ev, reg, pat: CouplingPattern):
     B, S, nz, _ = K.shape
     nnz, C = len(pat.rows), len(pat.ucols)
     dev = K.device
+    _check_nz("factor_se", nz)
     _check_pattern("factor_se", pat, nz)
     check("factor_se", "K", K, (B, S, nz, nz), dev)
     check("factor_se", "ev", ev, (B, S - 1, nnz), dev)
@@ -185,6 +196,7 @@ def fwd_se(Sinv, ev, r, pat: CouplingPattern):
     B, S, nz = r.shape
     nnz = len(pat.rows)
     dev = r.device
+    _check_nz("fwd_se", nz)
     _check_pattern("fwd_se", pat, nz)
     check("fwd_se", "Sinv", Sinv, (B, S, nz, nz), dev)
     check("fwd_se", "ev", ev, (B, S - 1, nnz), dev)

@@ -98,6 +98,75 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _interchange_system(nz, S, B, kind, seed=0):
+    """Stage blocks that need row interchanges, numpy f64: quasidefinite
+    blocks (primal part nw = ceil(nz / 2)) whose regularized leading
+    diagonal entry is 1e-8 ("tiny_lead"), or whose rows are randomly
+    permuted ("permuted"); a random duplicate-free coupling pattern of
+    11 entries.  Condition numbers stay below 10 (float64 check)."""
+    rng = np.random.default_rng(seed)
+    nw = (nz + 1) // 2
+    nc = nz - nw
+    M = rng.standard_normal((B, S, nw, nw))
+    A = M @ np.swapaxes(M, -1, -2) / nw + 2.0 * np.eye(nw)
+    Q = rng.standard_normal((B, S, nc, nc))
+    D = -(Q @ np.swapaxes(Q, -1, -2) / nc + np.eye(nc))
+    J = rng.standard_normal((B, S, nc, nw))
+    K = np.concatenate([np.concatenate([A, np.swapaxes(J, -1, -2)], -1),
+                        np.concatenate([J, D], -1)], -2)
+    reg = np.tile(np.concatenate([np.full(nw, 1e-4), np.full(nc, -1e-4)]),
+                  (B, 1))
+    if kind == "tiny_lead":
+        K[:, :, 0, 0] = 1e-8 - reg[:, None, 0]
+    else:
+        for b in range(B):
+            for s in range(S):
+                K[b, s] = K[b, s][rng.permutation(nz)]
+    flat = rng.choice(nz * nz, size=11, replace=False)
+    pat = bk.CouplingPattern.of(flat // nz, flat % nz)
+    ev = 0.3 * rng.standard_normal((B, S - 1, len(flat)))
+    r = rng.standard_normal((B, S, nz))
+    return K, ev, reg, r, pat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nz,S,B,kind", [
+    (11, 1, 3, "tiny_lead"), (11, 7, 1, "permuted"),
+    (56, 2, 1, "tiny_lead"), (56, 9, 2, "permuted"),
+    (bk.NZ_MAX, 5, 1, "permuted"), (bk.NZ_MAX, 2, 2, "tiny_lead")])
+def test_cuda_factor_fwd_se_with_interchanges(nz, S, B, kind, cuda):
+    """factor_se and fwd_se within 1e-4 relative of their plain versions
+    in float32 on blocks that need row interchanges (the implicit pivot
+    permutation), at nz = 11, 56 and the cap, S = 1, 2 and S that are
+    not multiples of fwd_se's ring of 4 stage buffers, and B = 1."""
+    K, ev, reg, r, pat = _interchange_system(nz, S, B, kind)
+    K, ev, reg, r = (_f32(a, cuda) for a in (K, ev, reg, r))
+    before = dict(bk.launches)
+    Sinv, Wc = bk.factor_se(K, ev, reg, pat)
+    y = bk.fwd_se(Sinv, ev, r, pat)
+    torch.cuda.synchronize()
+    Sinv_p, Wc_p = bk.factor_se_plain(K, ev, reg, pat)
+    assert _rel(Sinv, Sinv_p) <= 1e-4
+    if S > 1:
+        assert _rel(Wc, Wc_p) <= 1e-4
+    assert _rel(y, bk.fwd_se_plain(Sinv, ev, r, pat)) <= 1e-4
+    for name in ("factor_se", "fwd_se"):
+        assert bk.launches[name] == before[name] + 1
+
+
+@pytest.mark.gpu
+def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
+    """An nz above NZ_MAX raises on the card: no fallback."""
+    nz = bk.NZ_MAX + 1
+    pat = bk.CouplingPattern.of([0], [1])
+    K = torch.zeros((1, 2, nz, nz), device=cuda)
+    ev = torch.zeros((1, 1, 1), device=cuda)
+    with pytest.raises(ValueError, match="cap"):
+        bk.factor_se(K, ev, torch.zeros((1, nz), device=cuda), pat)
+    with pytest.raises(ValueError, match="cap"):
+        bk.fwd_se(K, ev, torch.zeros((1, 2, nz), device=cuda), pat)
+
+
 @pytest.fixture(scope="module")
 def dense_e():
     """A genuinely dense coupling block per stage, 0.3 N(0, 1) / sqrt(nz)."""

@@ -16,8 +16,9 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from obca_torch import mixed_solver_config, reverse_parking_spec
-from obca_torch.solver import ipm
+from obca_torch import mixed_solver_config, nlp, reverse_parking_spec
+from obca_torch import spec as tspec
+from obca_torch.solver import blocktri, ipm, kkt
 from obca_tpu.solver import ipm as jipm
 from obca_tpu.spec import mixed_solver_config as j_mixed_solver_config
 from obca_tpu.spec import reverse_parking_spec as j_reverse_parking_spec
@@ -36,7 +37,18 @@ def test_mixed_solve_single_reaches_golden_and_matches_jax():
     port pivots, the JAX XLA route inverts pivot-free, primal block
     first), so the iterates take different paths: measured 66 port
     iterations against 53, with controls 3.0e-11 (port) and 5.2e-9 (JAX)
-    from the golden's and 5.2e-9 from each other."""
+    from the golden's and 5.2e-9 from each other.
+
+    Traced: the two runs part at the first IPM step, whose main KKT
+    system they build alike (to 7e-16).  There the JAX route's f32 stage
+    inverse is off by up to 0.64 relative and its GCR(4) stops at a
+    residual of 2.8e-2, where the port's stops at 1.7e-7 (the next
+    test); the first steps differ by 1.68 relative.  With the
+    primal-first inverse swapped into the port's factor the port takes
+    59 iterations, and with the JAX route's whole formula (dense E, reg
+    added in f64, ``blocktri.factor`` with ``qd_inv``) 110: the count
+    follows the rounding of an inaccurate factor, so it is no measure
+    of a fault."""
     gold = np.load(GOLDENS / "reverse_parking_dist_N40.npz")
     N, Ts = int(gold["N"]), float(gold["Ts"])
 
@@ -54,3 +66,55 @@ def test_mixed_solve_single_reaches_golden_and_matches_jax():
     jres = jax.jit(lambda sp: jipm.solve_single(sp, jcfg, W0))(jspec)
     assert int(jres.status) == jipm.STATUS_CONVERGED
     np.testing.assert_allclose(U, np.asarray(jres.U), rtol=0, atol=1e-6)
+
+
+def test_first_step_kkt_solve_pivoted_vs_primal_first(monkeypatch):
+    """Where the port's mixed solve and the JAX package's part: the main
+    KKT solve of the first IPM step (same instance and warm start as
+    above).  The port's f32 factor (LU with partial pivoting) leaves
+    GCR(4) a residual below 1e-6 (measured 1.7e-7); the pivot-free,
+    primal-first f32 inverse of the JAX package's CPU route (its twin
+    ``blocktri.qd_inv``, with that route's dense E and reg added in f64)
+    leaves one above 1e-3 (measured 2.8e-2), and the two directions
+    differ by more than 10% of their size."""
+    gold = np.load(GOLDENS / "reverse_parking_dist_N40.npz")
+    spec = reverse_parking_spec(N=int(gold["N"]), Ts=float(gold["Ts"]),
+                                signed=False, device="cpu")
+    made, calls = [], []
+    real = kkt.make_kkt_solver_se
+
+    def capture(*args, **kwargs):
+        solve = real(*args, **kwargs)
+        tag = len(made)
+        made.append(args)
+
+        def wrapped(K, ev, reg, rhs):
+            calls.append((tag, K.clone(), ev.clone(), reg.clone(),
+                          rhs.clone()))
+            return solve(K, ev, reg, rhs)
+        return wrapped
+
+    monkeypatch.setattr(kkt, "make_kkt_solver_se", capture)
+    with torch.no_grad():
+        state, step, L, _ = ipm._make_step(
+            tspec.stack([spec]), mixed_solver_config(max_iter=200),
+            torch.tensor(gold["W0"])[None])
+        step(state)
+    # Solvers: the dual least-squares start, the main solve, SOC.
+    K, ev, reg, rhs = next(c[1:] for c in calls if c[0] == 1)
+    rows, cols = nlp.coupling_structure(L)
+    f32, f64 = torch.float32, torch.float64
+
+    d_port, lin_port = real(L.nw, 4, f32, f64, rows, cols)(K, ev, reg, rhs)
+
+    E = torch.zeros(K.shape[:1] + (K.shape[1] - 1,) + K.shape[2:],
+                    dtype=f64)
+    E[:, :, torch.as_tensor(rows), torch.as_tensor(cols)] = ev
+    fac = blocktri.factor((K + torch.diag_embed(reg)[:, None]).to(f32),
+                          E.to(f32), nw=L.nw)
+    d_qd, lin_qd = blocktri.solve_gcr(K, E, fac, rhs, m=4,
+                                      residual_dtype=f64)
+    assert float(lin_port.max()) <= 1e-6
+    assert float(lin_qd.max()) >= 1e-3
+    assert float((d_qd - d_port).abs().max()
+                 / d_port.abs().max()) >= 0.1
