@@ -15,7 +15,9 @@ non-zero, and no result line is printed):
    a genuinely dense coupling block for the dense-coupling kernels
    (relative error must be <= 1e-4), and the structured ones again on
    the real system of the main path's first IPM iteration (printed);
-   median CUDA-event times over 25 runs each;
+   median CUDA-event times over 25 runs each (the host's launch gap
+   included) and each kernel's own device time per call (25 calls under
+   torch.profiler);
 4. the f32 main path as ``bench.py`` builds it: 128 start-pose shifts of
    ``reverse_parking_spec(N=80, Ts=0.3)`` in float32, one shared
    ``lattice.plan_field``, per-lane ``geometric.lattice_warm_start`` and
@@ -159,8 +161,9 @@ def kernel_costs(B, S, nz, nnz, C):
         "fwd_se": (
             K + ev + vec + 2 * nnz * i + vec,
             B * S * 2 * nz * nz + B * (S - 1) * 2 * nnz),
+        # rows, cols, ucols and the per-row coupling lists.
         "bwd_matvec_se": (
-            Wc + vec + K + ev + (2 * nnz + C) * i + 2 * vec,
+            Wc + vec + K + ev + (4 * nnz + C + 2 * (nz + 1)) * i + 2 * vec,
             B * S * 2 * nz * nz + B * (S - 1) * (2 * nz * C + 4 * nnz)),
         "bwd_se": (
             Wc + vec + C * i + vec,
@@ -235,10 +238,35 @@ def err(got, want):
         bool(torch.isfinite(got).all())
 
 
+def device_ms(fn, runs=25):
+    """The device's own time per call of ``fn`` (one kernel wrapper):
+    the self device time of the CUDA kernels that ``runs`` calls launch
+    under torch.profiler, over ``runs``, with those launches per call.
+    Unlike the CUDA-event time, it leaves out the host's launch gap."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kern)
+    return total_us / 1e3 / runs, sum(e.count for e in kern) / runs
+
+
 def add_times(out, calls, device):
-    """Median CUDA-event times of each kernel and its plain version."""
+    """Median CUDA-event times of each kernel and its plain version, and
+    the kernel's device time per call."""
     for name, (kern, plain) in calls.items():
         out[name]["ms"] = time_ms(kern, device)
+        out[name]["device_ms"], out[name]["device_launches"] = \
+            device_ms(kern)
         out[name]["plain_ms"] = time_ms(plain, device, runs=20)
 
 
@@ -397,8 +425,10 @@ def stage_inverse_accuracy(bk, pat, nw, K, ev, reg):
 
 def device_profile(fn):
     """Run ``fn`` under torch.profiler: (wall s, device busy s, the
-    eight CUDA kernels with the most device time as (name, ms, calls)).
-    Busy time is the sum of kernel times (one stream, no overlap)."""
+    eight CUDA kernels with the most device time as (name, ms, calls),
+    and {port kernel: (ms, calls)} for each of :data:`KERNELS` that ran,
+    found by its CUDA function's name, ``<kernel>_kernel``).  Busy time
+    is the sum of kernel times (one stream, no overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -414,8 +444,14 @@ def device_profile(fn):
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     top = sorted(kern, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
+    ours = {}
+    for name in KERNELS:
+        hits = [e for e in kern if f"{name}_kernel" in e.key]
+        if hits:
+            ours[name] = (sum(e.self_device_time_total for e in hits) / 1e3,
+                          sum(e.count for e in hits))
     return wall, busy, [(e.key[:60], e.self_device_time_total / 1e3,
-                         e.count) for e in top]
+                         e.count) for e in top], ours
 
 
 def parity_gap(device, golden, cfg, signed=True):
@@ -479,7 +515,7 @@ def measure_main_path(bk, base, specs, cfg):
 
 
 def print_profile(label, base, specs, cfg, wall_median):
-    p_wall, p_busy, p_top = device_profile(
+    p_wall, p_busy, p_top, p_ours = device_profile(
         lambda: run_main_path(base, specs, cfg))
     if p_busy > 0:
         print(f"profiled {label}: wall {p_wall:.3f} s, device busy "
@@ -487,6 +523,9 @@ def print_profile(label, base, specs, cfg, wall_median):
               f"unprofiled median wall {wall_median:.3f} s)")
         for name, ms, calls in p_top:
             print(f"  device {ms:9.2f} ms  {calls:6d} calls  {name}")
+        for name, (ms, calls) in p_ours.items():
+            print(f"  kernel {name}: device {ms:.2f} ms over {calls} "
+                  f"calls, {ms / calls:.4f} ms each")
     else:
         print(f"profiled {label}: device time not measured (the "
               "profiler recorded no CUDA kernels)")
@@ -572,9 +611,10 @@ def main():
             if not finite or rel > SYNTH_TOL:
                 raise RuntimeError(f"{name}.{what} disagrees with its plain "
                                    f"version: rel err {rel:.3e}")
-        print(f"time {name}: kernel {d['ms']:.4f} ms, plain "
-              f"{d['plain_ms']:.4f} ms, bound {bounds[name][0]:.4f} ms "
-              f"({bounds[name][1]})")
+        print(f"time {name}: kernel {d['ms']:.4f} ms, device "
+              f"{d['device_ms']:.4f} ms ({d['device_launches']:g} "
+              f"launches a call), plain {d['plain_ms']:.4f} ms, bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]})")
     launches = {name: 0 for name in KERNELS}
 
     # 4. The f32 main path.
@@ -680,7 +720,8 @@ def main():
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(v[0] for v in synth[name].values()
                                if isinstance(v, tuple)),
-            "ms": synth[name]["ms"], "plain_ms": synth[name]["plain_ms"],
+            "ms": synth[name]["ms"], "device_ms": synth[name]["device_ms"],
+            "plain_ms": synth[name]["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))

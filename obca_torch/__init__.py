@@ -5,12 +5,11 @@ GPU.  The module layout mirrors ``obca_tpu``; public function names
 match their counterparts.  Where JAX ``vmap``s over scenarios, the port
 carries an explicit leading batch dimension B.
 
-Float32 precision: the KKT factorization is pivot-free, and the f32
-fast path only converges when every f32 matrix product runs in full
-f32 (the JAX package forces "highest" matmul precision for the same
-reason — reduced-precision products break the quasidefinite factor).
-TF32 keeps about three decimal digits, so the package turns it off for
-both cuBLAS and cuDNN when it is imported.
+Float32 precision: the f32 fast path only converges when every f32
+matrix product runs in full f32 (the JAX package forces "highest"
+matmul precision for the same reason).  TF32 keeps about three decimal
+digits, so the package turns it off for both cuBLAS and cuDNN when it
+is imported.
 """
 
 import torch

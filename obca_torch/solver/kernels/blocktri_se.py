@@ -28,7 +28,7 @@ import torch
 from obca_torch.solver.kernels.runtime import (  # noqa: F401
     check, launch, launches, on_cpu, reset_launches)
 
-# The largest stage size nz that the factor_se and fwd_se kernels take
+# The largest stage size nz that the structured-coupling kernels take
 # (kNzMax in their sources); a larger nz on the card raises.
 NZ_MAX = 64
 
@@ -36,7 +36,8 @@ NZ_MAX = 64
 @dataclasses.dataclass(frozen=True, eq=False)
 class CouplingPattern:
     """Static sparsity of E: rows/cols [nnz], the sorted distinct
-    columns ucols [C] and cidx [nnz] (position of cols[j] in ucols)."""
+    columns ucols [C] and cidx [nnz] (position of cols[j] in ucols).
+    :meth:`lists` gives the entries of each row and of each column."""
 
     rows: np.ndarray
     cols: np.ndarray
@@ -60,6 +61,27 @@ class CouplingPattern:
                 n: torch.as_tensor(getattr(self, n), dtype=dtype,
                                    device=device)
                 for n in ("rows", "cols", "ucols", "cidx")}
+        return self._cache[key]
+
+    def lists(self, nz) -> dict:
+        """The coupling entries of each of nz rows, as numpy arrays: the
+        j with rows[j] == i are rent[rstart[i]:rstart[i + 1]], the j
+        with cols[j] == i are cent[cstart[i]:cstart[i + 1]], each in
+        increasing j; rstart and cstart have nz + 1 entries."""
+        out = {}
+        for k, idx in (("r", self.rows), ("c", self.cols)):
+            ent = np.argsort(idx, kind="stable")
+            out[f"{k}start"] = np.searchsorted(idx[ent], np.arange(nz + 1))
+            out[f"{k}ent"] = ent
+        return out
+
+    def lists_index(self, nz, device) -> dict:
+        """:meth:`lists` as int32 tensors on ``device`` (cached)."""
+        key = ("lists", nz, str(device))
+        if key not in self._cache:
+            self._cache[key] = {
+                n: torch.as_tensor(a, dtype=torch.int32, device=device)
+                for n, a in self.lists(nz).items()}
         return self._cache[key]
 
 
@@ -217,16 +239,19 @@ def bwd_matvec_se(Wc, y, K, ev, pat: CouplingPattern):
     B, S, nz = y.shape
     nnz, C = len(pat.rows), len(pat.ucols)
     dev = y.device
+    _check_nz("bwd_matvec_se", nz)
     _check_pattern("bwd_matvec_se", pat, nz)
     check("bwd_matvec_se", "Wc", Wc, (B, S - 1, nz, C), dev)
     check("bwd_matvec_se", "y", y, (B, S, nz), dev)
     check("bwd_matvec_se", "K", K, (B, S, nz, nz), dev)
     check("bwd_matvec_se", "ev", ev, (B, S - 1, nnz), dev)
     ix = pat.index(dev, torch.int32)
+    lst = pat.lists_index(nz, dev)
     p = torch.empty_like(y)
     Ap = torch.empty_like(y)
     launch("bwd_matvec_se", dev, Wc, y, K, ev, ix["rows"], ix["cols"],
-           ix["ucols"], B, S, nz, nnz, C, p, Ap)
+           ix["ucols"], lst["rstart"], lst["rent"], lst["cstart"],
+           lst["cent"], B, S, nz, nnz, C, p, Ap)
     return p, Ap
 
 
@@ -239,6 +264,7 @@ def bwd_se(Wc, y, pat: CouplingPattern):
     B, S, nz = y.shape
     C = len(pat.ucols)
     dev = y.device
+    _check_nz("bwd_se", nz)
     _check_pattern("bwd_se", pat, nz)
     check("bwd_se", "Wc", Wc, (B, S - 1, nz, C), dev)
     check("bwd_se", "y", y, (B, S, nz), dev)

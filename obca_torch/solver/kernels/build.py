@@ -39,7 +39,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for path in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

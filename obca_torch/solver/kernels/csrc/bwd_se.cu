@@ -9,64 +9,47 @@
 //
 // Per scenario b (one thread block each), stages s = S-1..0 in order:
 //   p_{S-1} = y_{S-1},  p_s = y_s - sum_c Wc_s[:, c] p_{s+1}[ucols[c]]
-// One thread per row of the stage; p_{s+1} sits in a two-slot buffer in
-// shared memory, so each stage takes one block barrier, and p goes to
-// device memory as it is made.
+// The sweep of bwd_sweep.cuh without its lagged matvec.
 //
 // Bound on an H100 SXM (3.35 TB/s), main-path shape B=128, S=81, nz=56,
 // C=11: bytes Wc 25.2 MB + y 2.3 MB in, p 2.3 MB out ~ 30 MB (~9 us);
-// 2 nz C (S-1) B ~ 13 MFLOP is negligible.  Memory-bound on paper; the
-// chain of S dependent stages, each waiting on one stage's Wc rows, makes
-// this design latency-bound.
-#include "common.cuh"
+// 2 nz C (S-1) B ~ 13 MFLOP is negligible.  Memory-bound on paper, but
+// each stage waits for the one before: once the stages arrive ahead of
+// time, the pace is the latency of one stage's chain (a barrier, the
+// u loads, C FMAs, the stores).  A stage is only Wc_s + y_s (about
+// 2.7 KB at that shape), so the ring holds 16 of them (about 43 KB; a
+// stage is fetched 14 steps before it is swept, far more than the
+// memory latency).  A pattern too wide for 16 buffers (C near nz at the
+// cap) takes a ring of 4; one too wide for 4 is refused.
+// 96 threads: two sweep warps, one per row, and the fetching warp; nz
+// is capped at 64.
+#include "bwd_sweep.cuh"
 
-constexpr int kThreads = 64;
+constexpr int kNzMax = kSweepMax;  // 64
 
-__global__ void __launch_bounds__(kThreads)
-bwd_se_kernel(const float* __restrict__ Wc, const float* __restrict__ y,
-              const int* __restrict__ ucols, int S, int nz, int C,
-              float* __restrict__ p) {
-  extern __shared__ float smem[];
-  float* buf = smem;                                // [2, nz]
-  int* iuc = reinterpret_cast<int*>(buf + 2 * nz);  // [C]
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const size_t vec = static_cast<size_t>(S) * nz;
-  const float* Wb = Wc + static_cast<size_t>(b) * (S - 1) * nz * C;
-  const float* yb = y + static_cast<size_t>(b) * vec;
-  float* pb = p + static_cast<size_t>(b) * vec;
-
-  load_ints(iuc, ucols, C);
-  for (int i = tid; i < nz; i += blockDim.x) {
-    const float v = yb[(S - 1) * nz + i];
-    buf[((S - 1) & 1) * nz + i] = v;
-    pb[(S - 1) * nz + i] = v;
-  }
-  __syncthreads();
-
-  for (int s = S - 2; s >= 0; --s) {
-    const float* pn = buf + ((s + 1) & 1) * nz;  // p_{s+1}
-    float* pc = buf + (s & 1) * nz;              // p_s
-    for (int i = tid; i < nz; i += blockDim.x) {
-      const float* Wrow = Wb + (static_cast<size_t>(s) * nz + i) * C;
-      float acc = yb[s * nz + i];
-      for (int c = 0; c < C; ++c) acc -= Wrow[c] * pn[iuc[c]];
-      pc[i] = acc;
-      pb[s * nz + i] = acc;
-    }
-    // One barrier a stage: stage s-1 writes the slot stage s read.
-    __syncthreads();
-  }
+template <int kRing, bool kSmallC>
+__global__ void __launch_bounds__(bwd_threads(false))
+    bwd_se_kernel(BwdArgs a) {
+  bwd_sweep<false, kRing, kSmallC>(a);
 }
 
 OBCA_EXPORT int obca_bwd_se_f32(const float* Wc, const float* y,
                                 const int* ucols, int B, int S, int nz,
                                 int C, float* p, void* stream) {
-  const size_t smem = sizeof(float) * 2 * nz + sizeof(int) * C;
-  cudaError_t err = allow_smem(bwd_se_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_se_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      Wc, y, ucols, S, nz, C, p);
-  return static_cast<int>(cudaGetLastError());
+  if (nz < 1 || nz > kNzMax || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{Wc, y, nullptr, nullptr, ucols, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, S, nz, 0, C,
+                  // Bulk copies and float4 reads need whole 16-byte rows
+                  // (nz % 4 == 0 covers nz C too) and aligned blocks.
+                  nz % 4 == 0 && aligned16(Wc) && aligned16(y), p,
+                  nullptr};
+  const bool small = C <= kCmax;
+  if (bwd_smem<false, 16>(a) <= kSmemMax)
+    return launch_bwd<false, 16>(
+        small ? bwd_se_kernel<16, true> : bwd_se_kernel<16, false>, a, B,
+        stream);
+  return launch_bwd<false, 4>(
+      small ? bwd_se_kernel<4, true> : bwd_se_kernel<4, false>, a, B,
+      stream);
 }

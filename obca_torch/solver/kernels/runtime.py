@@ -34,8 +34,7 @@ SIGNATURES = {
     "fwd_se": ("fwd_se", "obca_fwd_se_f32",
                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "bwd_matvec_se": ("bwd_matvec_se", "obca_bwd_matvec_se_f32",
-                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                       _P, _P]),
+                      [_P] * 11 + [_I] * 5 + [_P, _P, _P]),
     "bwd_se": ("bwd_se", "obca_bwd_se_f32",
                [_P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "factor_dense": ("factor_dense", "obca_factor_dense_f32",

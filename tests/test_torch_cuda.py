@@ -156,15 +156,83 @@ def test_cuda_factor_fwd_se_with_interchanges(nz, S, B, kind, cuda):
 
 @pytest.mark.gpu
 def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
-    """An nz above NZ_MAX raises on the card: no fallback."""
+    """An nz above NZ_MAX raises on the card in each structured-coupling
+    kernel (factor_se, fwd_se, bwd_matvec_se, bwd_se): no fallback."""
     nz = bk.NZ_MAX + 1
     pat = bk.CouplingPattern.of([0], [1])
     K = torch.zeros((1, 2, nz, nz), device=cuda)
     ev = torch.zeros((1, 1, 1), device=cuda)
+    y = torch.zeros((1, 2, nz), device=cuda)
+    Wc = torch.zeros((1, 1, nz, 1), device=cuda)
     with pytest.raises(ValueError, match="cap"):
         bk.factor_se(K, ev, torch.zeros((1, nz), device=cuda), pat)
     with pytest.raises(ValueError, match="cap"):
-        bk.fwd_se(K, ev, torch.zeros((1, 2, nz), device=cuda), pat)
+        bk.fwd_se(K, ev, y, pat)
+    with pytest.raises(ValueError, match="cap"):
+        bk.bwd_matvec_se(Wc, y, K, ev, pat)
+    with pytest.raises(ValueError, match="cap"):
+        bk.bwd_se(Wc, y, pat)
+
+
+def _bwd_system(nz, S, B, kind, seed=0):
+    """Inputs of the backward kernels, numpy f64: Wc [B, S-1, nz, C]
+    (scaled so that p stays of order one over the stages), y [B, S, nz],
+    K [B, S, nz, nz], ev [B, S-1, nnz], and the pattern.  "window": 11
+    distinct entries in rows 0-5 and the last 6 columns, so that some
+    rows and columns hold several entries and others none; "wide": every
+    column coupled (C = nz, wider than the sweep's unrolled row, and too
+    wide for the kernels' larger rings of stage buffers) and row 0 three
+    times more."""
+    rng = np.random.default_rng(seed)
+    if kind == "wide":
+        rows = np.concatenate([np.arange(nz), [0, 0, 0]])
+        cols = np.concatenate([(5 * np.arange(nz) + 1) % nz, [3, 5, 7]])
+    else:
+        flat = rng.choice(36, size=11, replace=False)
+        rows, cols = flat // 6, nz - 6 + flat % 6
+    pat = bk.CouplingPattern.of(rows, cols)
+    C = len(pat.ucols)
+    Wc = 0.5 * rng.standard_normal((B, S - 1, nz, C)) / np.sqrt(C)
+    y = rng.standard_normal((B, S, nz))
+    K = rng.standard_normal((B, S, nz, nz))
+    ev = 0.3 * rng.standard_normal((B, S - 1, len(rows)))
+    return Wc, y, K, ev, pat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nz,S,B,kind,y_offset", [
+    (11, 1, 3, "window", False), (11, 17, 1, "window", False),
+    (56, 1, 1, "window", False), (56, 2, 3, "window", False),
+    (56, 9, 1, "window", False), (56, 17, 3, "window", False),
+    (56, 7, 3, "window", True), (bk.NZ_MAX, 7, 1, "window", False),
+    (bk.NZ_MAX, 9, 3, "wide", False)])
+def test_cuda_bwd_kernels_match_plain(nz, S, B, kind, y_offset, cuda):
+    """bwd_matvec_se (p and Ap) and bwd_se within 1e-4 relative of their
+    plain versions in float32 (the sums run in another order): nz = 11
+    (the scalar route), 56 and the cap; S = 1 (no Wc stage), 2 and S
+    whose step counts are not multiples of the rings of 8 (bwd_matvec_se)
+    and 16 (bwd_se) stage buffers; B = 1 and 3; y at a 4-byte offset
+    (contiguous, not 16-byte aligned), which takes the scalar route.  One
+    launch counted per call."""
+    Wc, y, K, ev, pat = _bwd_system(nz, S, B, kind)
+    Wc, K, ev = (_f32(a, cuda) for a in (Wc, K, ev))
+    if y_offset:
+        buf = torch.empty(y.size + 1, device=cuda)
+        y_t = buf[1:].view(y.shape)
+        y_t.copy_(torch.as_tensor(y, dtype=torch.float32))
+        assert y_t.is_contiguous() and y_t.data_ptr() % 16 != 0
+    else:
+        y_t = _f32(y, cuda)
+    before = dict(bk.launches)
+    p, Ap = bk.bwd_matvec_se(Wc, y_t, K, ev, pat)
+    q = bk.bwd_se(Wc, y_t, pat)
+    torch.cuda.synchronize()
+    p_p, Ap_p = bk.bwd_matvec_se_plain(Wc, y_t, K, ev, pat)
+    assert _rel(p, p_p) <= 1e-4
+    assert _rel(Ap, Ap_p) <= 1e-4
+    assert _rel(q, bk.bwd_se_plain(Wc, y_t, pat)) <= 1e-4
+    for name in ("bwd_matvec_se", "bwd_se"):
+        assert bk.launches[name] == before[name] + 1
 
 
 @pytest.fixture(scope="module")

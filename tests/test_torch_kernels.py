@@ -116,6 +116,45 @@ def test_factor_fwd_bwd_plain_match_pallas(system):
                                atol=1e-12)
 
 
+def _list_pattern(kind):
+    """(rows, cols, nz): the OBCA coupling pattern of the reverse-parking
+    layout (rows with several entries and rows with none), or a random
+    one with repeated (row, col) pairs whose rows 5..10 are empty."""
+    if kind == "obca":
+        from obca_torch import nlp, reverse_parking_spec
+
+        L = nlp.layout_of(reverse_parking_spec(N=10, device="cpu"))
+        rows, cols = nlp.coupling_structure(L)
+        return rows, cols, L.nz
+    rng = np.random.default_rng(3)
+    return rng.integers(0, 5, size=20), rng.integers(0, NZ, size=20), NZ
+
+
+@pytest.mark.parametrize("kind", ["obca", "random"])
+def test_coupling_lists_match_brute_force(kind):
+    """CouplingPattern's per-row coupling lists (start offsets and entry
+    indices, by row and by column) against a plain scan of the pattern,
+    and their int32 tensors."""
+    rows, cols, nz = _list_pattern(kind)
+    pat = tbk.CouplingPattern.of(rows, cols)
+    lists = pat.lists(nz)
+    tens = pat.lists_index(nz, "cpu")
+    nnz = len(rows)
+    for key, idx in (("r", rows), ("c", cols)):
+        start, ent = lists[f"{key}start"], lists[f"{key}ent"]
+        assert len(start) == nz + 1 and start[0] == 0 and start[-1] == nnz
+        for i in range(nz):
+            want = [j for j in range(nnz) if idx[j] == i]
+            assert list(ent[start[i]:start[i + 1]]) == want
+        for name, arr in ((f"{key}start", start), (f"{key}ent", ent)):
+            assert tens[name].dtype == torch.int32
+            assert tens[name].tolist() == list(arr)
+    assert pat.lists_index(nz, "cpu") is tens   # cached
+    if kind == "obca":
+        counts = np.bincount(rows, minlength=nz)
+        assert counts.max() > 1 and (counts == 0).any()
+
+
 def test_blocktri_twin_matches_jax(system):
     K, ev, reg, r = system
     E = np.zeros((B, S - 1, NZ, NZ))
