@@ -98,8 +98,8 @@ def factor(K, E, nw: int | None = None) -> BlockTriFactor:
         S_k = K[:, k] - E[:, k - 1].transpose(-1, -2) @ W_k
         Sinv.append(inv(S_k))
         Ws.append(W_k)
-    return BlockTriFactor(Sinv=torch.stack(Sinv, 1), W=torch.stack(Ws, 1),
-                          E=E)
+    W = torch.stack(Ws, 1) if Ws else E.new_empty(E.shape)  # S = 1: none
+    return BlockTriFactor(Sinv=torch.stack(Sinv, 1), W=W, E=E)
 
 
 def _mv(M, v):

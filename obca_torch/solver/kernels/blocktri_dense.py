@@ -10,7 +10,9 @@ here).  Batch-major layout: K, Sinv [B, S, nz, nz], E, W
 The wrappers follow the rules of ``blocktri_se``: the plain version for
 a CPU tensor; for a CUDA tensor float32, shape, contiguity and device
 are checked, the kernel is launched and counted in the shared
-``runtime.launches``, or the call raises.
+``runtime.launches``, or the call raises.  ``factor_dense`` and
+``fwd_dense`` take nz up to ``NZ_MAX`` (64) on the card and raise above
+it; ``bwd_dense`` takes any nz.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from obca_torch.solver import blocktri
-from obca_torch.solver.kernels.runtime import check, launch, on_cpu
+from obca_torch.solver.kernels.runtime import (  # noqa: F401
+    NZ_MAX, check, check_nz, launch, on_cpu)
 
 
 def factor_dense_plain(K, E):
@@ -52,6 +55,7 @@ def factor_dense(K, E):
         return factor_dense_plain(K, E)
     B, S, nz, _ = K.shape
     dev = K.device
+    check_nz("factor_dense", nz)
     check("factor_dense", "K", K, (B, S, nz, nz), dev)
     check("factor_dense", "E", E, (B, S - 1, nz, nz), dev)
     Sinv = torch.empty_like(K)
@@ -66,6 +70,7 @@ def fwd_dense(Sinv, E, r):
         return fwd_dense_plain(Sinv, E, r)
     B, S, nz = r.shape
     dev = r.device
+    check_nz("fwd_dense", nz)
     check("fwd_dense", "Sinv", Sinv, (B, S, nz, nz), dev)
     check("fwd_dense", "E", E, (B, S - 1, nz, nz), dev)
     check("fwd_dense", "r", r, (B, S, nz), dev)

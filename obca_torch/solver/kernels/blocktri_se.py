@@ -24,13 +24,10 @@ import dataclasses
 import numpy as np
 import torch
 
-# launches and reset_launches are re-exported: one count for all kernels.
+# launches, reset_launches and NZ_MAX are re-exported: one count and one
+# cap for all kernels.
 from obca_torch.solver.kernels.runtime import (  # noqa: F401
-    check, launch, launches, on_cpu, reset_launches)
-
-# The largest stage size nz that the structured-coupling kernels take
-# (kNzMax in their sources); a larger nz on the card raises.
-NZ_MAX = 64
+    NZ_MAX, check, check_nz, launch, launches, on_cpu, reset_launches)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -177,12 +174,6 @@ def _check_pattern(kernel, pat, nz):
         raise ValueError(f"{kernel}: coupling pattern outside [0, {nz})")
 
 
-def _check_nz(kernel, nz):
-    if nz > NZ_MAX:
-        raise ValueError(f"{kernel}: nz={nz} is above the kernel's cap "
-                         f"NZ_MAX={NZ_MAX}")
-
-
 def factor_se(K, ev, reg, pat: CouplingPattern):
     """Sparse-coupling factorization.
 
@@ -197,7 +188,7 @@ def factor_se(K, ev, reg, pat: CouplingPattern):
     B, S, nz, _ = K.shape
     nnz, C = len(pat.rows), len(pat.ucols)
     dev = K.device
-    _check_nz("factor_se", nz)
+    check_nz("factor_se", nz)
     _check_pattern("factor_se", pat, nz)
     check("factor_se", "K", K, (B, S, nz, nz), dev)
     check("factor_se", "ev", ev, (B, S - 1, nnz), dev)
@@ -218,7 +209,7 @@ def fwd_se(Sinv, ev, r, pat: CouplingPattern):
     B, S, nz = r.shape
     nnz = len(pat.rows)
     dev = r.device
-    _check_nz("fwd_se", nz)
+    check_nz("fwd_se", nz)
     _check_pattern("fwd_se", pat, nz)
     check("fwd_se", "Sinv", Sinv, (B, S, nz, nz), dev)
     check("fwd_se", "ev", ev, (B, S - 1, nnz), dev)
@@ -239,7 +230,7 @@ def bwd_matvec_se(Wc, y, K, ev, pat: CouplingPattern):
     B, S, nz = y.shape
     nnz, C = len(pat.rows), len(pat.ucols)
     dev = y.device
-    _check_nz("bwd_matvec_se", nz)
+    check_nz("bwd_matvec_se", nz)
     _check_pattern("bwd_matvec_se", pat, nz)
     check("bwd_matvec_se", "Wc", Wc, (B, S - 1, nz, C), dev)
     check("bwd_matvec_se", "y", y, (B, S, nz), dev)
@@ -264,7 +255,7 @@ def bwd_se(Wc, y, pat: CouplingPattern):
     B, S, nz = y.shape
     C = len(pat.ucols)
     dev = y.device
-    _check_nz("bwd_se", nz)
+    check_nz("bwd_se", nz)
     _check_pattern("bwd_se", pat, nz)
     check("bwd_se", "Wc", Wc, (B, S - 1, nz, C), dev)
     check("bwd_se", "y", y, (B, S, nz), dev)

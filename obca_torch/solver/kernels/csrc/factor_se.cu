@@ -27,40 +27,18 @@
 // of a stage: the kernel is latency-bound, not bound by either.
 //
 // The first design took 8.1 ms per call at that shape on an H100: 1024
-// threads per scenario ran common.cuh's pivoted_inverse, with three
-// block-wide barriers per pivot, a one-warp pivot search down a
-// bank-conflicted column, physical row swaps, an integer division per
-// element, and a synchronous load of K_k at the start of every stage.
+// threads per scenario ran a shared-memory Gauss-Jordan inverse (since
+// removed), with three block-wide barriers per pivot, a one-warp pivot
+// search down a bank-conflicted column, physical row swaps, an integer
+// division per element, and a synchronous load of K_k at the start of
+// every stage.
 // This design:
 //
-// - Four threads per column (4 nz <= 256 threads per scenario).  Thread
-//   (j, g) holds rows 16g .. 16g+15 of column j in registers for the
-//   whole stage; its cells are fixed once, by shifts.
-// - Implicit pivoting: rows never move.  Step p pivots on r_p, the
-//   unused row with the largest |a[r, p]|, and updates in place with
-//   h = a[r_p, :] / a[r_p, p], h_p = 1 / a[r_p, p]: every row i other
-//   than r_p becomes a[i, :] - a[i, p] h, column p replaced by e_{r_p}
-//   first.  Row r_p itself keeps its values and its scaling 1 / a[r_p,
-//   p] is deferred (later updates are linear in the row, so they apply
-//   to the unscaled row alike), which makes every cell's update one
-//   FMA with no select.  At the end Sinv[p, r_q] = a[r_p, q] / a[r_p,
-//   p]: the permutation and the scaling are applied when Sinv_k is
-//   staged for its write-out, and Wc_k is formed from the staged
-//   Sinv_k.
-// - One barrier per pivot: while the others finish step p, the warp
-//   that holds column p+1 keys that column's unused rows (|a| with the
-//   low 7 mantissa bits dropped, packed with the row; ties to the
-//   smaller row) and publishes the column, its pivot row and the
-//   pivot's reciprocal into a double buffer in shared memory.  The
-//   largest key comes from one reduction over the whole warp, to which
-//   the other columns' threads contribute 0; the branch around it is
-//   warp-uniform.  (A reduction over only the column's four lanes, with
-//   a per-thread mask, compiles to a loop, and was much slower.)  A
-//   thread takes the pivot row's value in its own column by a shuffle
-//   from the thread that holds it, picked from registers by a select
-//   tree.
-// - The published column is read as float4 with 20 floats between row
-//   groups, so the four row groups of a warp fall on distinct banks.
+// - The block is inverted in registers, four threads per column, by
+//   Gauss-Jordan elimination with implicit partial pivoting, deferred
+//   row scaling and one barrier per pivot.  That elimination lives in
+//   gauss_jordan.cuh (gj_eliminate, gj_stage), which factor_dense.cu
+//   shares; its header describes it.
 // - K_{k+1} (and ev_{k+1}) are fetched with 16-byte cp.async into the
 //   second of two stage buffers while stage k eliminates; Sinv_k is
 //   staged in the buffer K_k came in and written back with 16-byte
@@ -69,84 +47,7 @@
 // Shared memory: 2 nz^2 + nz C + C^2 + 2 nnz floats and a few arrays of
 // at most 64; it does not grow with S.  nz is capped at kNzMax = 64 (the
 // wrapper raises above it; the entry point refuses it too).
-#include "common.cuh"
-
-constexpr int kNzMax = 64;               // largest nz the kernel takes
-constexpr int kGroups = 4;               // threads per column
-constexpr int kRows = kNzMax / kGroups;  // rows held by each thread
-constexpr int kCbStride = 20;            // floats between row groups
-constexpr int kCbSlot = kGroups * kCbStride;
-constexpr int kColsPerWarp = 32 / kGroups;
-static_assert(kRows == 16, "row group = r >> 4; pick16");
-
-// a[ql] (0 <= ql < 16) by a select tree of depth 4.
-__device__ __forceinline__ float pick16(const float (&a)[kRows], int ql) {
-  const bool b0 = ql & 1, b1 = ql & 2, b2 = ql & 4, b3 = ql & 8;
-  const float s0 = b0 ? a[1] : a[0], s1 = b0 ? a[3] : a[2];
-  const float s2 = b0 ? a[5] : a[4], s3 = b0 ? a[7] : a[6];
-  const float s4 = b0 ? a[9] : a[8], s5 = b0 ? a[11] : a[10];
-  const float s6 = b0 ? a[13] : a[12], s7 = b0 ? a[15] : a[14];
-  const float t0 = b1 ? s1 : s0, t1 = b1 ? s3 : s2;
-  const float t2 = b1 ? s5 : s4, t3 = b1 ? s7 : s6;
-  const float u0 = b2 ? t1 : t0, u1 = b2 ? t3 : t2;
-  return b3 ? u1 : u0;
-}
-
-// 1 / x to within an ulp or so for normal x: the hardware's approximate
-// reciprocal and one Newton step, inline (no call to a slow path).
-__device__ __forceinline__ float recip(float x) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return fmaf(r, fmaf(-x, r, 1.0f), r);
-}
-
-// Run by the whole warp that holds column p (a warp-uniform branch).
-// `freem` has bit q set when row 16 g + q exists and has not pivoted.
-// The key of a row packs |a| (non-negative floats order as their bits;
-// the low 7 mantissa bits dropped) with 127 - row, so ties go to the
-// smaller row and an unused row keys above 0.  Every thread forms its
-// best key and the reciprocal of that row's value; one warp reduction,
-// to which only column p's threads contribute, picks the pivot, and the
-// thread that holds it publishes its row and reciprocal.
-__device__ __forceinline__ void publish_column(
-    const float (&a)[kRows], int p, int j, int g, unsigned freem,
-    float* colbuf, int* prow, int* pof, float* pinv) {
-  const bool mine = j == p;
-  float4* cb = reinterpret_cast<float4*>(colbuf + (p & 1) * kCbSlot +
-                                         g * kCbStride);
-  if (mine) {
-    // Rows past nz land in the padding and are never read as pivots.
-#pragma unroll
-    for (int m = 0; m < kRows / 4; ++m)
-      cb[m] = make_float4(a[4 * m], a[4 * m + 1], a[4 * m + 2],
-                          a[4 * m + 3]);
-  }
-  const unsigned rowkey = 127u - static_cast<unsigned>(g * kRows);
-  unsigned kq[kRows];
-#pragma unroll
-  for (int q = 0; q < kRows; ++q)
-    kq[q] = ((freem >> q) & 1u)
-                ? (__float_as_uint(a[q]) & 0x7FFFFF80u) | (rowkey - q)
-                : 0u;
-  // The tree is spelled out: as a loop over levels it was compiled to a
-  // round trip through local memory per level.
-  const unsigned kmine =
-      max(max(max(max(kq[0], kq[1]), max(kq[2], kq[3])),
-              max(max(kq[4], kq[5]), max(kq[6], kq[7]))),
-          max(max(max(kq[8], kq[9]), max(kq[10], kq[11])),
-              max(max(kq[12], kq[13]), max(kq[14], kq[15]))));
-  const int rmine = 127 - static_cast<int>(kmine & 127u);
-  const float dmine = recip(pick16(a, rmine & (kRows - 1)));
-  const unsigned kmax = __reduce_max_sync(0xffffffffu, mine ? kmine : 0u);
-  if (mine && kmine == kmax) {
-    // This thread holds the pivot row; its entry of the published
-    // column is 0, so the update leaves the pivot row as it is.
-    reinterpret_cast<float*>(cb)[rmine & (kRows - 1)] = 0.0f;
-    prow[p] = rmine;
-    pof[rmine] = p;
-    pinv[p] = dmine;
-  }
-}
+#include "gauss_jordan.cuh"
 
 __global__ void __launch_bounds__(kNzMax * kGroups)
 factor_se_kernel(const float* __restrict__ K, const float* __restrict__ ev,
@@ -169,12 +70,11 @@ factor_se_kernel(const float* __restrict__ K, const float* __restrict__ ev,
   int* irow = uidx + kNzMax;   // [nnz]
   int* cent = irow + nnz;      // [nnz] entries j ordered by cidx[j]
   int* cstart = cent + nnz;    // [C + 1] first entry of each ucol
+  const GjPivots pv{colbuf, pinv, prow, pof};
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int j = tid >> 2;               // column
   const int g = tid & (kGroups - 1);    // rows kRows*g .. kRows*g+kRows-1
   const int i0 = g * kRows;
@@ -243,60 +143,11 @@ factor_se_kernel(const float* __restrict__ K, const float* __restrict__ ev,
       if (k > 0 && cj >= 0 && ai >= 0) v -= U[ai * C + cj];
       a[q] = v;
     }
-    // Rows of this thread that exist and have not pivoted yet.
-    const int nrows = nz - i0;
-    unsigned freem = nrows >= kRows ? 0xFFFFu
-                     : nrows > 0    ? (1u << nrows) - 1u
-                                    : 0u;
-    if (warp == 0) publish_column(a, 0, j, g, freem, colbuf, prow, pof, pinv);
-    __syncthreads();
+    gj_eliminate(a, nz, j, g, pv);
 
-    for (int p = 0; p < nz; ++p) {
-      const int r = prow[p];
-      const float d = pinv[p];
-      const int gr = r >> 4;  // r / kRows
-      if (g == gr) freem &= ~(1u << (r & (kRows - 1)));
-      // a[r, j] from the thread of column j that holds row r.
-      const float v = __shfl_sync(0xffffffffu, pick16(a, r & (kRows - 1)),
-                                  (lane & ~(kGroups - 1)) | gr);
-      const float gj = (j == p) ? d : v * d;
-      if (j == p) {
-        // Column p becomes e_r (in the stored scaling) before the update.
-        const int myrl = (g == gr) ? (r & (kRows - 1)) : -1;
-#pragma unroll
-        for (int q = 0; q < kRows; ++q) a[q] = (q == myrl) ? 1.0f : 0.0f;
-      }
-      const float4* cb = reinterpret_cast<const float4*>(
-          colbuf + (p & 1) * kCbSlot + g * kCbStride);
-#pragma unroll
-      for (int m = 0; m < kRows / 4; ++m) {
-        const float4 c4 = cb[m];
-        a[4 * m] = fmaf(-c4.x, gj, a[4 * m]);
-        a[4 * m + 1] = fmaf(-c4.y, gj, a[4 * m + 1]);
-        a[4 * m + 2] = fmaf(-c4.z, gj, a[4 * m + 2]);
-        a[4 * m + 3] = fmaf(-c4.w, gj, a[4 * m + 3]);
-      }
-      if (p + 1 < nz) {
-        if ((p + 1) / kColsPerWarp == warp)
-          publish_column(a, p + 1, j, g, freem, colbuf, prow, pof, pinv);
-        __syncthreads();
-      }
-    }
-
-    // Stage Sinv_k where K_k came in: Sinv[p, r_q] = a[r_p, q] / a_p,
-    // with the pivot row's deferred scaling 1 / a_p = pinv[p].
+    // Stage Sinv_k where K_k came in.
     float* sb = kbuf + cur * blk;
-    if (active) {
-      const int col = prow[j];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int i = i0 + q;
-        if (i < nz) {
-          const int pi = pof[i];
-          sb[pi * nz + col] = a[q] * pinv[pi];
-        }
-      }
-    }
+    gj_stage(a, nz, j, g, pv, sb, nz, nullptr);
     __syncthreads();
     float* Sk = Sb + k * sblk;
     if (vec) {

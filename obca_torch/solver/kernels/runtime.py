@@ -71,6 +71,17 @@ def on_cpu(kernel, t):
     return t.device.type == "cpu"
 
 
+# The largest stage size nz that the block-tridiagonal kernels take
+# (kNzMax in their sources); a larger nz on the card raises.
+NZ_MAX = 64
+
+
+def check_nz(kernel, nz):
+    if nz > NZ_MAX:
+        raise ValueError(f"{kernel}: nz={nz} is above the kernel's cap "
+                         f"NZ_MAX={NZ_MAX}")
+
+
 def check(kernel, what, t, shape, device):
     if t.device != device:
         raise ValueError(f"{kernel}: {what} is on {t.device}, "

@@ -52,6 +52,18 @@ def _f32(a, dev):
     return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
 
 
+def _on_card(a, dev, offset=False):
+    """a as a contiguous float32 tensor on dev; with offset, 4 bytes past
+    a 16-byte boundary (contiguous, not 16-byte aligned)."""
+    if not offset:
+        return _f32(a, dev)
+    buf = torch.empty(a.size + 1, device=dev)
+    t = buf[1:].view(a.shape)
+    t.copy_(torch.as_tensor(a, dtype=torch.float32))
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    return t
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain(system, cuda):
     """Relative error <= 1e-4 in float32, each kernel fed the same
@@ -157,13 +169,16 @@ def test_cuda_factor_fwd_se_with_interchanges(nz, S, B, kind, cuda):
 @pytest.mark.gpu
 def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
     """An nz above NZ_MAX raises on the card in each structured-coupling
-    kernel (factor_se, fwd_se, bwd_matvec_se, bwd_se): no fallback."""
+    kernel (factor_se, fwd_se, bwd_matvec_se, bwd_se) and in the dense
+    factor_dense and fwd_dense: no fallback, no launch."""
     nz = bk.NZ_MAX + 1
     pat = bk.CouplingPattern.of([0], [1])
     K = torch.zeros((1, 2, nz, nz), device=cuda)
     ev = torch.zeros((1, 1, 1), device=cuda)
     y = torch.zeros((1, 2, nz), device=cuda)
     Wc = torch.zeros((1, 1, nz, 1), device=cuda)
+    E = torch.zeros((1, 1, nz, nz), device=cuda)
+    before = dict(bk.launches)
     with pytest.raises(ValueError, match="cap"):
         bk.factor_se(K, ev, torch.zeros((1, nz), device=cuda), pat)
     with pytest.raises(ValueError, match="cap"):
@@ -172,6 +187,46 @@ def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
         bk.bwd_matvec_se(Wc, y, K, ev, pat)
     with pytest.raises(ValueError, match="cap"):
         bk.bwd_se(Wc, y, pat)
+    with pytest.raises(ValueError, match="cap"):
+        bd.factor_dense(K, E)
+    with pytest.raises(ValueError, match="cap"):
+        bd.fwd_dense(K, E, y)
+    assert bk.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nz,S,B,kind,r_offset", [
+    (11, 1, 3, "tiny_lead", False), (11, 7, 1, "permuted", False),
+    (56, 1, 1, "permuted", False), (56, 2, 1, "tiny_lead", False),
+    (56, 9, 3, "permuted", False), (56, 7, 3, "tiny_lead", True),
+    (bk.NZ_MAX, 5, 1, "permuted", False),
+    (bk.NZ_MAX, 2, 3, "tiny_lead", False)])
+def test_cuda_factor_fwd_dense_with_interchanges(nz, S, B, kind, r_offset,
+                                                 cuda):
+    """factor_dense (Sinv and W) and fwd_dense within 1e-4 relative of
+    their plain versions in float32, on a dense coupling block (0.3
+    N(0, 1) / sqrt(nz)) and stage blocks that need row interchanges: nz
+    = 11 (the 4-byte route), 56 and the cap; S = 1, 2 and S that are not
+    multiples of fwd_dense's ring of 4 stage buffers; B = 1 and 3; r at
+    a 4-byte offset, which takes the 4-byte route.  One launch counted
+    per call."""
+    K, _, reg, r, _ = _interchange_system(nz, S, B, kind)
+    rng = np.random.default_rng(2)
+    E = 0.3 * rng.standard_normal((B, S - 1, nz, nz)) / np.sqrt(nz)
+    K = _f32(K + reg[:, None, :, None] * np.eye(nz), cuda)
+    E = _f32(E, cuda)
+    r = _on_card(r, cuda, r_offset)
+    before = dict(bk.launches)
+    Sinv, W = bd.factor_dense(K, E)
+    y = bd.fwd_dense(Sinv, E, r)
+    torch.cuda.synchronize()
+    Sinv_p, W_p = bd.factor_dense_plain(K, E)
+    assert _rel(Sinv, Sinv_p) <= 1e-4
+    if S > 1:
+        assert _rel(W, W_p) <= 1e-4
+    assert _rel(y, bd.fwd_dense_plain(Sinv, E, r)) <= 1e-4
+    for name in ("factor_dense", "fwd_dense"):
+        assert bk.launches[name] == before[name] + 1
 
 
 def _bwd_system(nz, S, B, kind, seed=0):
@@ -216,13 +271,7 @@ def test_cuda_bwd_kernels_match_plain(nz, S, B, kind, y_offset, cuda):
     launch counted per call."""
     Wc, y, K, ev, pat = _bwd_system(nz, S, B, kind)
     Wc, K, ev = (_f32(a, cuda) for a in (Wc, K, ev))
-    if y_offset:
-        buf = torch.empty(y.size + 1, device=cuda)
-        y_t = buf[1:].view(y.shape)
-        y_t.copy_(torch.as_tensor(y, dtype=torch.float32))
-        assert y_t.is_contiguous() and y_t.data_ptr() % 16 != 0
-    else:
-        y_t = _f32(y, cuda)
+    y_t = _on_card(y, cuda, y_offset)
     before = dict(bk.launches)
     p, Ap = bk.bwd_matvec_se(Wc, y_t, K, ev, pat)
     q = bk.bwd_se(Wc, y_t, pat)

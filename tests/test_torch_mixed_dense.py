@@ -130,6 +130,31 @@ def test_dense_plain_matches_pallas(system):
                                rtol=1e-9, atol=1e-12)
 
 
+@pytest.mark.parametrize("stages", [1, 2])
+def test_dense_plain_matches_pallas_short_chains(stages):
+    """(b) on the shortest chains, rtol 1e-9, atol 1e-12 in float64: one
+    stage (no coupling block, W empty) and two.  The card tests hold
+    factor_dense and fwd_dense against these plain versions at S = 1."""
+    rng = np.random.default_rng(3)
+    K = np.stack([np.stack([_qd_block(rng) for _ in range(stages)])
+                  for _ in range(2)])
+    E = 0.3 * rng.standard_normal((2, stages - 1, NZ, NZ)) / np.sqrt(NZ)
+    r = rng.standard_normal((2, stages, NZ))
+    Sinv_j, W_j = jbk.factor_batched(_lanes_minor(K), _lanes_minor(E), NW,
+                                     interpret=True)
+    x_j = _batch_major(jbk.solve_batched(Sinv_j, W_j, _lanes_minor(E),
+                                         _lanes_minor(r), interpret=True))
+
+    Sinv_t, W_t = tbd.factor_dense(_t(K), _t(E))
+    assert tuple(W_t.shape) == (2, stages - 1, NZ, NZ)
+    np.testing.assert_allclose(Sinv_t.numpy(), _batch_major(Sinv_j),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(W_t.numpy(), _batch_major(W_j), rtol=1e-9,
+                               atol=1e-12)
+    x_t = tbd.solve_dense(Sinv_t, W_t, _t(E), _t(r))
+    np.testing.assert_allclose(x_t.numpy(), x_j, rtol=1e-9, atol=1e-12)
+
+
 def test_kkt_solver_dense_matches_jax(system):
     """(c) the port's make_kkt_solver against the JAX Pallas route
     (interpret mode, under vmap): d to rtol 1e-8, the residual norms to
