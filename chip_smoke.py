@@ -18,6 +18,15 @@ non-zero, and no result line is printed):
    median CUDA-event times over 25 runs each (the host's launch gap
    included) and each kernel's own device time per call (25 calls under
    torch.profiler);
+3b. the kernel bench's probe kernels against their plain versions: the
+   stream kernel (out = x + 1) over the bench's [B, S, nz, nz] array
+   and over an odd n from a 4-byte offset (both exact), the FMA probe
+   within 1e-5 relative, timed like phase 3 and beside PyTorch's x + 1;
+   then the kernel bench (``obca_torch.tools.kernel_bench``) at B=128,
+   N=80 with every launch count set to 0 just before it and read just
+   after (both probes must have launched), printed as one
+   ``kernel_bench`` JSON line, and each phase-3 kernel's bound at the
+   stream and FMA rates the bench measured;
 4. the f32 main path as ``bench.py`` builds it: 128 start-pose shifts of
    ``reverse_parking_spec(N=80, Ts=0.3)`` in float32, one shared
    ``lattice.plan_field``, per-lane ``geometric.lattice_warm_start`` and
@@ -45,7 +54,7 @@ non-zero, and no result line is printed):
    and ``reverse_parking_dist_N80`` (unsigned distance) under
    ``mixed_solver_config(max_iter=200)``; each gap must be < 1e-3;
 6. one ``kernels`` JSON line (launches summed over the counted runs of
-   phases 4, 6d and 4m), then the device line, last.
+   phases 3b, 4, 6d and 4m), then the device line, last.
 
 It imports nothing of JAX and nothing of ``obca_tpu``.
 """
@@ -56,7 +65,6 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -64,12 +72,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data-sheet peaks (dense, no sparsity, 700 W).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-
 B_MAIN, N_MAIN, TS_MAIN, ITERS_MAIN = 128, 80, 0.3, 55
 SYNTH_TOL = 1e-4
+PROBE_TOL = 1e-5
 PARITY_TOL = 1e-3
 DENSE_TOL = 1e-3
 _PALLAS = "obca_tpu/solver/pallas/blocktri_kernel.py"
@@ -82,6 +87,9 @@ KERNELS = {
     "factor_dense": (f"{_PALLAS}:172", "factor_dense.cu"),
     "fwd_dense": (f"{_PALLAS}:262", "solve_dense.cu"),
     "bwd_dense": (f"{_PALLAS}:262", "solve_dense.cu"),
+    "stream_add_one": ("tools/kernel_bench.py:236", "probes.cu"),
+    "fma_probe": ("tools/kernel_bench.py:264 (XLA-fused, no pallas_call)",
+                  "probes.cu"),
 }
 
 
@@ -143,50 +151,6 @@ def synthetic_dense_e(B, S, nz, seed=1):
     return 0.3 * rng.standard_normal((B, S - 1, nz, nz)) / np.sqrt(nz)
 
 
-def kernel_costs(B, S, nz, nnz, C):
-    """(bytes, operations) each kernel must at least move / do at these
-    shapes: every input read once, every output written once (f32 data,
-    int32 pattern)."""
-    f, i = 4, 4
-    K = B * S * nz * nz * f
-    ev = B * (S - 1) * nnz * f
-    vec = B * S * nz * f
-    Wc = B * (S - 1) * nz * C * f
-    E = B * (S - 1) * nz * nz * f
-    return {
-        "factor_se": (
-            K + ev + B * nz * f + (2 * nnz + C) * i + K + Wc,
-            B * S * 2 * nz ** 3
-            + B * (S - 1) * (2 * nz * nnz + 2 * nnz * C)),
-        "fwd_se": (
-            K + ev + vec + 2 * nnz * i + vec,
-            B * S * 2 * nz * nz + B * (S - 1) * 2 * nnz),
-        # rows, cols, ucols and the per-row coupling lists.
-        "bwd_matvec_se": (
-            Wc + vec + K + ev + (4 * nnz + C + 2 * (nz + 1)) * i + 2 * vec,
-            B * S * 2 * nz * nz + B * (S - 1) * (2 * nz * C + 4 * nnz)),
-        "bwd_se": (
-            Wc + vec + C * i + vec,
-            B * (S - 1) * 2 * nz * C),
-        # Two stage products and one stage inverse, 2 nz^3 each.
-        "factor_dense": (
-            K + E + K + E,
-            B * S * 2 * nz ** 3 + B * (S - 1) * 2 * 2 * nz ** 3),
-        "fwd_dense": (
-            K + E + vec + vec,
-            B * S * 2 * nz * nz + B * (S - 1) * 2 * nz * nz),
-        "bwd_dense": (
-            E + vec + vec,
-            B * (S - 1) * 2 * nz * nz),
-    }
-
-
-def bound_ms(nbytes, ops):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def compare_kernels(bk, pat, K, ev, reg, r, device, timing):
     """Run each kernel and its plain version on the same inputs on
     ``device``; returns {name: {errors..., ms, plain_ms}}.  Each kernel's
@@ -238,31 +202,11 @@ def err(got, want):
         bool(torch.isfinite(got).all())
 
 
-def device_ms(fn, runs=25):
-    """The device's own time per call of ``fn`` (one kernel wrapper):
-    the self device time of the CUDA kernels that ``runs`` calls launch
-    under torch.profiler, over ``runs``, with those launches per call.
-    Unlike the CUDA-event time, it leaves out the host's launch gap."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in kern)
-    return total_us / 1e3 / runs, sum(e.count for e in kern) / runs
-
-
 def add_times(out, calls, device):
     """Median CUDA-event times of each kernel and its plain version, and
     the kernel's device time per call."""
+    from obca_torch.tools.kernel_bench import device_ms
+
     for name, (kern, plain) in calls.items():
         out[name]["ms"] = time_ms(kern, device)
         out[name]["device_ms"], out[name]["device_launches"] = \
@@ -304,6 +248,40 @@ def compare_dense_kernels(bd, K, E, reg, r, device, timing):
             "bwd_dense": (lambda: bd.bwd_dense(W, y),
                           lambda: bd.bwd_dense_plain(W, y)),
         }, device)
+    return out
+
+
+def compare_probes(device, shape):
+    """The kernel bench's probe kernels against their plain versions on
+    the card, on one float32 array of ``shape`` from a seed: the stream
+    kernel there and over an odd n from a 4-byte offset (the scalar
+    route), the FMA probe there; with the times of each, and PyTorch's
+    ``x + 1`` as the stream kernel's library time."""
+    import torch
+    from obca_torch.solver.kernels import probes
+
+    x = torch.randn(shape, device=device,
+                    generator=torch.Generator(device).manual_seed(0))
+    buf = torch.randn(100_003, device=device,
+                      generator=torch.Generator(device).manual_seed(1))
+    odd = buf[1:]
+    if odd.numel() % 4 == 0 or odd.data_ptr() % 16 == 0:
+        raise RuntimeError("the odd probe input is not odd and unaligned")
+    out = {
+        "stream_add_one": {
+            "x": err(probes.stream_add_one(x), probes.stream_add_one_plain(x)),
+            "odd": err(probes.stream_add_one(odd),
+                       probes.stream_add_one_plain(odd))},
+        "fma_probe": {"x": err(probes.fma_probe(x),
+                               probes.fma_probe_plain(x))},
+    }
+    add_times(out, {
+        "stream_add_one": (lambda: probes.stream_add_one(x),
+                           lambda: probes.stream_add_one_plain(x)),
+        "fma_probe": (lambda: probes.fma_probe(x),
+                      lambda: probes.fma_probe_plain(x)),
+    }, device)
+    out["stream_add_one"]["library_ms"] = time_ms(lambda: x + 1, device)
     return out
 
 
@@ -568,15 +546,12 @@ def main():
     from obca_torch.solver.kernels import blocktri_dense as bd
     from obca_torch.solver.kernels import blocktri_se as bk
     from obca_torch.solver.kernels import build
+    from obca_torch.tools import kernel_bench as kb
 
     device = torch.device("cuda", 0)
 
     # 1. The card.
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    print(smi)
+    print(kb.card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -603,8 +578,8 @@ def main():
         bd, K_syn, synthetic_dense_e(B_MAIN, S, nz), reg_syn, r_syn, device,
         timing=True))
     print_errors("synthetic", synth)
-    bounds = {name: bound_ms(*c)
-              for name, c in kernel_costs(B_MAIN, S, nz, nnz, C).items()}
+    costs = kb.kernel_costs(B_MAIN, S, nz, nnz, C)
+    bounds = {name: kb.bound_ms(*c) for name, c in costs.items()}
     for name, d in synth.items():
         for what, (_abs, rel, finite) in (
                 (k, v) for k, v in d.items() if isinstance(v, tuple)):
@@ -616,6 +591,41 @@ def main():
               f"launches a call), plain {d['plain_ms']:.4f} ms, bound "
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]})")
     launches = {name: 0 for name in KERNELS}
+
+    # 3b. The kernel bench: its probe kernels against their plain
+    # versions, then the bench itself, counted.
+    probe_res = compare_probes(device, (B_MAIN, S, nz, nz))
+    print_errors("probe", probe_res)
+    for what, v in probe_res["stream_add_one"].items():
+        if isinstance(v, tuple) and not (v[0] == 0.0 and v[2]):
+            raise RuntimeError(f"stream_add_one.{what} is not x + 1: "
+                               f"max abs err {v[0]:.3e}")
+    fma_err = probe_res["fma_probe"]["x"]
+    if not fma_err[2] or fma_err[1] > PROBE_TOL:
+        raise RuntimeError(f"fma_probe disagrees with its plain version: "
+                           f"rel err {fma_err[1]:.3e}")
+    for name, d in probe_res.items():
+        print(f"time {name}: kernel {d['ms']:.4f} ms, device "
+              f"{d['device_ms']:.4f} ms, plain {d['plain_ms']:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})"
+              + (f", x + 1 {d['library_ms']:.4f} ms"
+                 if "library_ms" in d else ""))
+    synth.update(probe_res)
+    bk.reset_launches()
+    bench = kb.measure(B_MAIN, N_MAIN, 50, device)
+    for name in ("stream_add_one", "fma_probe"):
+        if bk.launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by the "
+                               f"kernel bench")
+        launches[name] += bk.launches[name]
+    print("kernel_bench " + json.dumps(bench))
+    for name, d in synth.items():
+        nbytes, ops = costs[name]
+        t = max(nbytes / (bench["cuda_stream_gbps"] * 1e6),
+                ops / (bench["fma_probe_tflops"] * 1e9))
+        print(f"measured_bound {name}: {t:.4f} ms at the measured stream "
+              f"and FMA rates, {100 * t / d['device_ms']:.1f}% of its "
+              f"device time")
 
     # 4. The f32 main path.
     cfg = f32_solver_config(max_iter=ITERS_MAIN)
@@ -635,7 +645,7 @@ def main():
     print_profile("main path", base, specs, cfg,
                   statistics.median(main_f32["wall_s_runs"]))
 
-    # 3b. Kernels against their plain versions: the main path's real
+    # 3c. Kernels against their plain versions: the main path's real
     # first-iteration system (Ruiz-scaled, as the solver factors it).
     Kr, evr, regr, patr = cap.system
     real = compare_kernels(bk, patr, Kr, evr, regr, cap.rhs, device,
@@ -722,7 +732,8 @@ def main():
                                if isinstance(v, tuple)),
             "ms": synth[name]["ms"], "device_ms": synth[name]["device_ms"],
             "plain_ms": synth[name]["plain_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": synth[name].get("library_ms"),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,8 @@ here).  Batch-major layout: K, Sinv [B, S, nz, nz], E, W
 The wrappers follow the rules of ``blocktri_se``: the plain version for
 a CPU tensor; for a CUDA tensor float32, shape, contiguity and device
 are checked, the kernel is launched and counted in the shared
-``runtime.launches``, or the call raises.  ``factor_dense`` and
-``fwd_dense`` take nz up to ``NZ_MAX`` (64) on the card and raise above
-it; ``bwd_dense`` takes any nz.
+``runtime.launches``, or the call raises.  All three take nz up to
+``NZ_MAX`` (64) on the card and raise above it.
 """
 
 from __future__ import annotations
@@ -85,6 +84,7 @@ def bwd_dense(W, y):
         return bwd_dense_plain(W, y)
     B, S, nz = y.shape
     dev = y.device
+    check_nz("bwd_dense", nz)
     check("bwd_dense", "W", W, (B, S - 1, nz, nz), dev)
     check("bwd_dense", "y", y, (B, S, nz), dev)
     x = torch.empty_like(y)

@@ -14,13 +14,6 @@ OBCA_EXPORT const char* obca_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Sum over the 32 lanes of a warp; every lane receives the total.
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // Copy a small int array from device memory into shared memory.
 __device__ __forceinline__ void load_ints(int* dst, const int* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];

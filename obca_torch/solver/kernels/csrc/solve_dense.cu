@@ -48,16 +48,29 @@
 // kNzMax = 64 (the wrapper raises above it; the entry point refuses it
 // too).
 //
-// bwd_dense: x_k = y_k - W_k x_{k+1} is one warp per row (contiguous,
-// coalesced) of W_k read from device memory, one barrier a stage.
+// bwd_dense.  The first design took 0.2223 ms per call at that shape on
+// an H100: 1024 threads, one warp per row of W_k read from device memory
+// on the stage chain, so every stage waited on a round trip to device
+// memory for its 12.5 KB.  This design is fwd_dense's with one phase:
+// - one fetching warp streams W_k and y_k (12.5 KB at nz=56) through a
+//   ring of kBwdRing buffers by bulk copies, stage k-7 in flight while
+//   stage k computes (about the bytes in flight of fwd_dense's ring);
+//   before the barrier that ends stage k it waits until stage k-1 has
+//   landed, so no other warp waits on an mbarrier;
+// - eight compute warps: x_k = y_k - W_k x_{k+1}, four lanes per row
+//   with float4 reads and two shuffles, as fwd_dense's second phase
+//   (quad_row_dot); one barrier a stage, since x_k needs all of x_{k+1}.
+// The same 4-byte route for odd nz or an unaligned base.  Shared memory:
+// kBwdRing (nz^2 + nz) floats and 128 more (102 KB at nz=56); nz is
+// capped at kNzMax.
 #include "common.cuh"
 
-constexpr int kThreads = 1024;               // bwd_dense
-constexpr int kFwdWarps = 8;                 // fwd_dense's compute warps
-constexpr int kFwdThreads = 32 * (kFwdWarps + 1);
+constexpr int kWarps = 8;                    // compute warps
+constexpr int kThreads = 32 * (kWarps + 1);  // and one fetching warp
 constexpr int kLanes = 4;                    // lanes per output or row
-constexpr int kNzMax = 32 * kFwdWarps / kLanes;  // 64
-constexpr int kRing = 4;                     // stage buffers in flight
+constexpr int kNzMax = 32 * kWarps / kLanes;  // 64
+constexpr int kRing = 4;                     // fwd_dense's stage buffers
+constexpr int kBwdRing = 8;                  // bwd_dense's stage buffers
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -72,7 +85,61 @@ struct FwdLayout {
         slot(2 * round4(nz * nz) + round4(nz)) {}
 };
 
-__global__ void __launch_bounds__(kFwdThreads)
+// The same for bwd_dense's W_k and y_k.
+struct BwdLayout {
+  int w, y, slot;
+  __host__ __device__ explicit BwdLayout(int nz)
+      : w(0), y(round4(nz * nz)), slot(round4(nz * nz) + round4(nz)) {}
+};
+
+// Row `row` of an nz x nz block in shared memory (mrow points at it)
+// times the vector v (shared memory, kNzMax floats, zero past nz): lane
+// part pl = 0..3 of the row's four lanes sums chunks pl, pl+4, ...
+// (float4 when vec), loads before FMAs, and two shuffles give each of
+// the four lanes the total.  The quad's lanes differ in lane bits 0 and
+// 3 (lane = 16 quad + 8 h + 2 rr + par, pl = 2 h + par), so the lanes
+// of a 128-bit shared-memory phase fall on distinct banks at nz = 56.
+__device__ __forceinline__ float quad_row_dot(const float* mrow,
+                                              const float* v, int nz,
+                                              int pl, bool vec) {
+  float acc0 = 0.0f, acc1 = 0.0f;
+  if (vec) {
+    const int nch = nz >> 2;
+    const float4* m4 = reinterpret_cast<const float4*>(mrow);
+    const float4* v4 = reinterpret_cast<const float4*>(v);
+    float4 mq[kNzMax / 16], vq[kNzMax / 16];
+#pragma unroll
+    for (int u = 0; u < kNzMax / 16; ++u) {
+      const int c = pl + kLanes * u;
+      mq[u] = c < nch ? m4[c] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      vq[u] = v4[c];
+    }
+#pragma unroll
+    for (int u = 0; u < kNzMax / 16; ++u) {
+      acc0 = fmaf(mq[u].x, vq[u].x, fmaf(mq[u].y, vq[u].y, acc0));
+      acc1 = fmaf(mq[u].z, vq[u].z, fmaf(mq[u].w, vq[u].w, acc1));
+    }
+  } else {
+    float mv[kNzMax / kLanes], vv[kNzMax / kLanes];
+#pragma unroll
+    for (int u = 0; u < kNzMax / kLanes; ++u) {
+      const int c = pl + kLanes * u;
+      mv[u] = c < nz ? mrow[c] : 0.0f;
+      vv[u] = v[c];
+    }
+#pragma unroll
+    for (int u = 0; u < kNzMax / kLanes; u += 2) {
+      acc0 = fmaf(mv[u], vv[u], acc0);
+      acc1 = fmaf(mv[u + 1], vv[u + 1], acc1);
+    }
+  }
+  float acc = acc0 + acc1;
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 8);
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads)
 fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
                  const float* __restrict__ r, int S, int nz, bool vec,
                  float* __restrict__ y) {
@@ -90,7 +157,7 @@ fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const bool fetcher = warp == kFwdWarps;
+  const bool fetcher = warp == kWarps;
   const int blk = nz * nz;
   const size_t sblk = static_cast<size_t>(blk);
   const float* Sb = Sinv + static_cast<size_t>(b) * S * sblk;
@@ -143,10 +210,8 @@ fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
   const int oi = tid >> 2;
   const int ot = tid & 3;
   const int oic = min(oi, nz - 1);
-  // Product phase: lane = 16 quad + 8 h + 2 rr + par holds row 8 warp +
-  // 4 quad + rr and reads its chunks l, l+4, ... with l = 2 h + par (the
-  // lanes of a 128-bit shared-memory phase fall on distinct banks at
-  // nz = 56).  Rows past nz read row nz-1 and are not stored.
+  // Product phase: row 8 warp + 4 quad + rr, lane part pl (see
+  // quad_row_dot).  Rows past nz read row nz-1 and are not stored.
   const int row = warp * 8 + (lane >> 4) * 4 + ((lane >> 1) & 3);
   const int pl = ((lane >> 3) & 1) * 2 + (lane & 1);
   const int rowc = min(row, nz - 1);
@@ -182,41 +247,8 @@ fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
     // yhat is published.
     __syncthreads();
     if (!fetcher) {
-      const float* srow = st + lay.sinv + rowc * nz;
-      float acc0 = 0.0f, acc1 = 0.0f;
-      if (vec) {
-        const int nch = nz >> 2;
-        const float4* S4 = reinterpret_cast<const float4*>(srow);
-        const float4* y4 = reinterpret_cast<const float4*>(yhat);
-        float4 sq[kNzMax / 16], yq[kNzMax / 16];
-#pragma unroll
-        for (int u = 0; u < kNzMax / 16; ++u) {
-          const int c = pl + kLanes * u;
-          sq[u] = c < nch ? S4[c] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          yq[u] = y4[c];
-        }
-#pragma unroll
-        for (int u = 0; u < kNzMax / 16; ++u) {
-          acc0 = fmaf(sq[u].x, yq[u].x, fmaf(sq[u].y, yq[u].y, acc0));
-          acc1 = fmaf(sq[u].z, yq[u].z, fmaf(sq[u].w, yq[u].w, acc1));
-        }
-      } else {
-        float sv[kNzMax / kLanes], yv[kNzMax / kLanes];
-#pragma unroll
-        for (int u = 0; u < kNzMax / kLanes; ++u) {
-          const int c = pl + kLanes * u;
-          sv[u] = c < nz ? srow[c] : 0.0f;
-          yv[u] = yhat[c];
-        }
-#pragma unroll
-        for (int u = 0; u < kNzMax / kLanes; u += 2) {
-          acc0 = fmaf(sv[u], yv[u], acc0);
-          acc1 = fmaf(sv[u + 1], yv[u + 1], acc1);
-        }
-      }
-      float acc = acc0 + acc1;
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 8);
+      const float acc =
+          quad_row_dot(st + lay.sinv + rowc * nz, yhat, nz, pl, vec);
       if (row < nz && pl == 0) {
         yprev[row] = acc;
         yb[static_cast<size_t>(k) * nz + row] = acc;
@@ -234,42 +266,101 @@ fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
 
 __global__ void __launch_bounds__(kThreads)
 bwd_dense_kernel(const float* __restrict__ W, const float* __restrict__ y,
-                 int S, int nz, float* __restrict__ x) {
-  extern __shared__ float smem[];
-  float* buf = smem;  // [2, nz] x_{k+1} and x_k, alternating
+                 int S, int nz, bool vec, float* __restrict__ x) {
+  static_assert((kBwdRing & (kBwdRing - 1)) == 0 && kBwdRing >= 3,
+                "a power of two, and step j+1 fetched before step j ends");
+  const BwdLayout lay(nz);
+  extern __shared__ __align__(16) float smem[];
+  unsigned long long* mbar =
+      reinterpret_cast<unsigned long long*>(smem);  // [kBwdRing]
+  float* ring = smem + 2 * kBwdRing;                // [kBwdRing][lay.slot]
+  float* xs = ring + kBwdRing * lay.slot;  // [2][kNzMax] x_{k+1}, x_k
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const size_t blk = static_cast<size_t>(nz) * nz;
-  const float* Wb = W + static_cast<size_t>(b) * (S - 1) * blk;
+  const int lane = tid & 31;
+  const bool fetcher = warp == kWarps;
+  const int blk = nz * nz;
+  const size_t sblk = static_cast<size_t>(blk);
+  const float* Wb = W + static_cast<size_t>(b) * (S - 1) * sblk;
   const float* yb = y + static_cast<size_t>(b) * S * nz;
   float* xb = x + static_cast<size_t>(b) * S * nz;
+  // Step j computes stage k = S-2-j.
+  const int steps = S - 1;
 
-  for (int i = tid; i < nz; i += blockDim.x) {
-    const float v = yb[(S - 1) * nz + i];
-    buf[((S - 1) & 1) * nz + i] = v;
-    xb[(S - 1) * nz + i] = v;
-  }
-  __syncthreads();
-  for (int k = S - 2; k >= 0; --k) {
-    const float* xn = buf + ((k + 1) & 1) * nz;  // x_{k+1}
-    float* xc = buf + (k & 1) * nz;              // x_k
-    const float* Wk = Wb + k * blk;
-    for (int row = warp; row < nz; row += nwarps) {
-      const float* Wrow = Wk + row * nz;
-      float acc = 0.0f;
-      for (int c = lane; c < nz; c += 32) acc += Wrow[c] * xn[c];
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        const float v = yb[k * nz + row] - acc;
-        xc[row] = v;
-        xb[k * nz + row] = v;
+  // Step j's W_k and y_k into buffer j % kBwdRing (run by the fetching
+  // warp; one cp.async group per call, empty past the last step).
+  auto fetch = [&](int j) {
+    if (j < steps) {
+      const int k = S - 2 - j;
+      float* dst = ring + (j & (kBwdRing - 1)) * lay.slot;
+      const float* wsrc = Wb + k * sblk;
+      const float* ysrc = yb + static_cast<size_t>(k) * nz;
+      if (vec) {
+        if (lane == 0) {
+          unsigned long long* bar = mbar + (j & (kBwdRing - 1));
+          mbar_expect_tx(bar, 4u * (blk + nz));
+          bulk_copy(dst + lay.w, wsrc, 4u * blk, bar);
+          bulk_copy(dst + lay.y, ysrc, 4u * nz, bar);
+        }
+      } else {
+        for (int e = lane; e < blk; e += 32)
+          cp_async4(dst + lay.w + e, wsrc + e);
+        for (int e = lane; e < nz; e += 32)
+          cp_async4(dst + lay.y + e, ysrc + e);
       }
     }
-    // One barrier a stage: stage k-1 writes the slot stage k read.
+    cp_async_commit();
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kBwdRing; ++s) mbar_init(mbar + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // x_{S-1} = y_{S-1}; both halves of xs are zero past nz.
+  for (int e = tid; e < 2 * kNzMax; e += blockDim.x) {
+    const float v = e < nz ? yb[static_cast<size_t>(S - 1) * nz + e] : 0.0f;
+    xs[e] = v;
+    if (e < nz) xb[static_cast<size_t>(S - 1) * nz + e] = v;
+  }
+  __syncthreads();
+  if (fetcher) {
+    for (int j = 0; j < kBwdRing - 1; ++j) fetch(j);
+    cp_async_wait<kBwdRing - 2>();  // step 0
+    if (vec && steps > 0) mbar_wait(mbar, 0);
+  }
+
+  // Row 8 warp + 4 quad + rr, lane part pl (see quad_row_dot).  Rows
+  // past nz read row nz-1 and are not stored.
+  const int row = warp * 8 + (lane >> 4) * 4 + ((lane >> 1) & 3);
+  const int pl = ((lane >> 3) & 1) * 2 + (lane & 1);
+  const int rowc = min(row, nz - 1);
+  __syncthreads();
+
+  for (int j = 0; j < steps; ++j) {
+    const float* st = ring + (j & (kBwdRing - 1)) * lay.slot;
+    if (fetcher) {
+      // Buffer (j - 1) % kBwdRing: its readers (step j-1) are done.
+      fetch(j + kBwdRing - 1);
+      if (j + 1 < steps) {
+        // Step j+1 has landed: the barrier publishes it to every warp.
+        cp_async_wait<kBwdRing - 2>();
+        const int h = j + 1;
+        if (vec) mbar_wait(mbar + (h & (kBwdRing - 1)), (h / kBwdRing) & 1);
+      }
+    } else {
+      const float acc = quad_row_dot(st + lay.w + rowc * nz,
+                                     xs + (j & 1) * kNzMax, nz, pl, vec);
+      if (row < nz && pl == 0) {
+        const int k = S - 2 - j;
+        const float v = st[lay.y + row] - acc;
+        xs[((j + 1) & 1) * kNzMax + row] = v;
+        xb[static_cast<size_t>(k) * nz + row] = v;
+      }
+    }
+    // x_k is published; every thread is done with step j's buffer and
+    // with x_{k+1}, which step j+1 overwrites with x_{k-1}.
     __syncthreads();
   }
 }
@@ -286,7 +377,7 @@ OBCA_EXPORT int obca_fwd_dense_f32(const float* Sinv, const float* E,
       sizeof(float) * (2 * kRing + kRing * FwdLayout(nz).slot + 2 * kNzMax);
   cudaError_t err = allow_smem(fwd_dense_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_dense_kernel<<<B, kFwdThreads, smem,
+  fwd_dense_kernel<<<B, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(Sinv, E, r, S, nz,
                                                           vec, y);
   return static_cast<int>(cudaGetLastError());
@@ -294,10 +385,14 @@ OBCA_EXPORT int obca_fwd_dense_f32(const float* Sinv, const float* E,
 
 OBCA_EXPORT int obca_bwd_dense_f32(const float* W, const float* y, int B,
                                    int S, int nz, float* x, void* stream) {
-  const size_t smem = sizeof(float) * 2 * nz;
+  if (nz < 1 || nz > kNzMax) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = nz % 4 == 0 && aligned16(W) && aligned16(y);
+  const size_t smem = sizeof(float) * (2 * kBwdRing +
+                                       kBwdRing * BwdLayout(nz).slot +
+                                       2 * kNzMax);
   cudaError_t err = allow_smem(bwd_dense_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dense_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      W, y, S, nz, x);
+      W, y, S, nz, vec, x);
   return static_cast<int>(cudaGetLastError());
 }

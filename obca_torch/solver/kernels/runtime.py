@@ -16,7 +16,8 @@ import torch
 # Kernel launches since the last reset (only real CUDA launches count).
 launches = {name: 0 for name in (
     "factor_se", "fwd_se", "bwd_matvec_se", "bwd_se",
-    "factor_dense", "fwd_dense", "bwd_dense")}
+    "factor_dense", "fwd_dense", "bwd_dense", "stream_add_one",
+    "fma_probe")}
 
 
 def reset_launches():
@@ -26,6 +27,7 @@ def reset_launches():
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # kernel -> (library in csrc/, C entry point, argument types; the stream
 # is the last argument of every entry point).
 SIGNATURES = {
@@ -43,6 +45,9 @@ SIGNATURES = {
                   [_P, _P, _P, _I, _I, _I, _P, _P]),
     "bwd_dense": ("solve_dense", "obca_bwd_dense_f32",
                   [_P, _P, _I, _I, _I, _P, _P]),
+    "stream_add_one": ("probes", "obca_stream_add_one_f32",
+                       [_P, _P, _L, _P]),
+    "fma_probe": ("probes", "obca_fma_probe_f32", [_P, _P, _L, _P]),
 }
 
 _entries: dict = {}

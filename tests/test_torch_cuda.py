@@ -15,6 +15,7 @@ import torch
 from obca_torch.solver import kkt
 from obca_torch.solver.kernels import blocktri_dense as bd
 from obca_torch.solver.kernels import blocktri_se as bk
+from obca_torch.solver.kernels import probes
 
 S, NW, NC, B = 9, 6, 5, 3
 NZ = NW + NC
@@ -170,7 +171,7 @@ def test_cuda_factor_fwd_se_with_interchanges(nz, S, B, kind, cuda):
 def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
     """An nz above NZ_MAX raises on the card in each structured-coupling
     kernel (factor_se, fwd_se, bwd_matvec_se, bwd_se) and in the dense
-    factor_dense and fwd_dense: no fallback, no launch."""
+    factor_dense, fwd_dense and bwd_dense: no fallback, no launch."""
     nz = bk.NZ_MAX + 1
     pat = bk.CouplingPattern.of([0], [1])
     K = torch.zeros((1, 2, nz, nz), device=cuda)
@@ -191,6 +192,8 @@ def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
         bd.factor_dense(K, E)
     with pytest.raises(ValueError, match="cap"):
         bd.fwd_dense(K, E, y)
+    with pytest.raises(ValueError, match="cap"):
+        bd.bwd_dense(E, y)
     assert bk.launches == before
 
 
@@ -203,13 +206,14 @@ def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
     (bk.NZ_MAX, 2, 3, "tiny_lead", False)])
 def test_cuda_factor_fwd_dense_with_interchanges(nz, S, B, kind, r_offset,
                                                  cuda):
-    """factor_dense (Sinv and W) and fwd_dense within 1e-4 relative of
-    their plain versions in float32, on a dense coupling block (0.3
-    N(0, 1) / sqrt(nz)) and stage blocks that need row interchanges: nz
-    = 11 (the 4-byte route), 56 and the cap; S = 1, 2 and S that are not
-    multiples of fwd_dense's ring of 4 stage buffers; B = 1 and 3; r at
-    a 4-byte offset, which takes the 4-byte route.  One launch counted
-    per call."""
+    """factor_dense (Sinv and W), fwd_dense and then bwd_dense within
+    1e-4 relative of their plain versions in float32, on a dense coupling
+    block (0.3 N(0, 1) / sqrt(nz)) and stage blocks that need row
+    interchanges: nz = 11 (the 4-byte route), 56 and the cap; S = 1, 2
+    and S that are not multiples of the rings of 4 (fwd_dense) and 8
+    (bwd_dense) stage buffers; B = 1 and 3; r, and y for bwd_dense, at a
+    4-byte offset, which takes the 4-byte route.  One launch counted per
+    call."""
     K, _, reg, r, _ = _interchange_system(nz, S, B, kind)
     rng = np.random.default_rng(2)
     E = 0.3 * rng.standard_normal((B, S - 1, nz, nz)) / np.sqrt(nz)
@@ -219,13 +223,16 @@ def test_cuda_factor_fwd_dense_with_interchanges(nz, S, B, kind, r_offset,
     before = dict(bk.launches)
     Sinv, W = bd.factor_dense(K, E)
     y = bd.fwd_dense(Sinv, E, r)
+    y_t = _on_card(y.cpu().numpy(), cuda, r_offset)
+    x = bd.bwd_dense(W, y_t)
     torch.cuda.synchronize()
     Sinv_p, W_p = bd.factor_dense_plain(K, E)
     assert _rel(Sinv, Sinv_p) <= 1e-4
     if S > 1:
         assert _rel(W, W_p) <= 1e-4
     assert _rel(y, bd.fwd_dense_plain(Sinv, E, r)) <= 1e-4
-    for name in ("factor_dense", "fwd_dense"):
+    assert _rel(x, bd.bwd_dense_plain(W, y_t)) <= 1e-4
+    for name in ("factor_dense", "fwd_dense", "bwd_dense"):
         assert bk.launches[name] == before[name] + 1
 
 
@@ -363,3 +370,24 @@ def test_cuda_dense_kernels_refuse_float64(system, dense_e, cuda):
     solve = kkt.make_kkt_solver(NW, 4, torch.float64, torch.float64)
     with pytest.raises(TypeError, match="float32"):
         solve(K, E, reg, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [
+    (3, True), (4096, False), (4096, True), (1_000_003, False),
+    (1_000_003, True)])
+def test_cuda_probe_kernels_match_plain(n, offset, cuda):
+    """The kernel bench's probes against their plain versions: the stream
+    kernel equals x + 1 exactly, the FMA probe is within 1e-5 relative
+    (it fuses each multiply-add, the plain version rounds twice); n with
+    n % 4 != 0 (the float4 route's scalar tail) and x at a 4-byte offset
+    (the scalar route).  One launch counted per call."""
+    x = _on_card(np.random.default_rng(n).standard_normal(n), cuda, offset)
+    before = dict(bk.launches)
+    s = probes.stream_add_one(x)
+    f = probes.fma_probe(x)
+    torch.cuda.synchronize()
+    assert torch.equal(s, probes.stream_add_one_plain(x))
+    assert _rel(f, probes.fma_probe_plain(x)) <= 1e-5
+    for name in ("stream_add_one", "fma_probe"):
+        assert bk.launches[name] == before[name] + 1
