@@ -20,14 +20,14 @@
 //
 // fma_probe: per element, 16 independent chains y_i = x (1 + 1e-6 i),
 // 16 FMAs y_i = y_i 1.0000001 + 1e-7 on each, and the 16 chains summed
-// in order: 2*16*16 + 2*16 = 544 operations per element.  The
+// in order: 2*16*16 + 16 + 15 = 543 operations per element.  The
 // counterpart of fma_chain (tools/kernel_bench.py:263-271), which has no
 // pallas_call: XLA fuses that expression into one kernel.  Eager PyTorch
 // runs it as about 300 separate elementwise kernels, each streaming the
 // whole array, which would measure the memory rate and not the FMA
 // rate; hence a kernel by hand, the chains in registers, x read once and
-// the sum written once.  Bound: operations, 544 n at 67 TFLOP/s (the
-// bench's array: 17.7 GFLOP, 0.264 ms) against 0.0776 ms of bytes; 16
+// the sum written once.  Bound: operations, 543 n at 67 TFLOP/s (the
+// bench's array: 17.66 GFLOP, 0.2635 ms) against 0.0776 ms of bytes; 16
 // independent chains cover the FMA latency.  A grid-stride loop over
 // kFmaBlocksPerSm blocks an SM (two waves of the 8 that fit) ran faster
 // in timings on an H100 than one wave or one element a thread.

@@ -105,6 +105,13 @@ def bound_ms(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def measured_bound_ms(nbytes, ops, stream_gbps, fma_tflops):
+    """The least time at the rates this card was measured to reach: bytes
+    at the stream kernel's GB/s or operations at the FMA probe's TFLOP/s,
+    whichever is longer."""
+    return max(nbytes / (stream_gbps * 1e6), ops / (fma_tflops * 1e9))
+
+
 def device_ms(fn, runs=25):
     """The device's own time per call of ``fn``: the self device time of
     the CUDA kernels that ``runs`` calls launch under torch.profiler,
@@ -200,8 +207,7 @@ def _shares(prefix, chained, trace, nbytes, ops, stream_gbps, fma_tflops):
     """The model of one chain (bytes, operations, bound) and what its
     measured times make of it."""
     sol, by = bound_ms(nbytes, ops)
-    measured_bound = max(nbytes / (stream_gbps * 1e6),
-                         ops / (fma_tflops * 1e9))
+    measured_bound = measured_bound_ms(nbytes, ops, stream_gbps, fma_tflops)
     model = {f"{prefix}_model_bytes_MB": nbytes / 1e6,
              f"{prefix}_model_gflop": ops / 1e9,
              f"{prefix}_sol_ms": sol, f"{prefix}_bound": by}

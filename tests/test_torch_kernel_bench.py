@@ -74,11 +74,10 @@ def test_stream_add_one_plain_matches_pallas_stream(x_np):
 
 def test_fma_probe_plain_matches_fma_chain(x_np):
     """The FMA probe's plain version against the JAX tool's fma_chain,
-    jitted on the CPU, float32 on both sides: rtol 5e-6.  XLA contracts
-    each y * a + b into one fused multiply-add, as the kernel does, where
-    PyTorch's eager ops round the product and the sum apart: up to 16
-    more roundings of 2^-24 along each chain, carried through the 16-term
-    sum (1.8e-6 at most on this input)."""
+    jitted on the CPU, float32 on both sides: rtol 1e-6.  On this input
+    the two lie at most 4 units in the last place apart (3.1e-7
+    relative); rounding each product and sum apart, as eager float32 ops
+    do, would lie 18 units away."""
     a_ = jnp.float32(1.0000001)
     b_ = jnp.float32(1e-7)
 
@@ -95,10 +94,42 @@ def test_fma_probe_plain_matches_fma_chain(x_np):
     want = np.asarray(fma_chain(jnp.asarray(x_np)))
     got = probes.fma_probe_plain(torch.from_numpy(x_np))
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=5e-6, atol=0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
     np.testing.assert_array_equal(
         probes.fma_probe(torch.from_numpy(x_np)).numpy(), got.numpy())
-    assert probes.FMA_PROBE_OPS == 2 * 16 * 16 + 2 * 16
+    # 256 FMAs of two operations, 16 scaling multiplies, 15 adds.
+    assert probes.FMA_PROBE_OPS == 2 * 16 * 16 + 16 + 15
+
+
+def _no_fmas(x):
+    return sum(x * torch.tensor(1.0 + 1e-6 * i, dtype=torch.float32)
+               for i in range(16))
+
+
+def _unfused(x):
+    a = torch.tensor(1.0000001, dtype=torch.float32)
+    b = torch.tensor(1e-7, dtype=torch.float32)
+    ys = [x * torch.tensor(1.0 + 1e-6 * i, dtype=torch.float32)
+          for i in range(16)]
+    for _ in range(16):
+        ys = [y * a + b for y in ys]
+    out = ys[0]
+    for y in ys[1:]:
+        out = out + y
+    return out
+
+
+@pytest.mark.parametrize("wrong", [_no_fmas, lambda x: 16 * x, _unfused],
+                         ids=["no_fmas", "times_16", "unfused"])
+def test_fma_probe_check_rejects_wrong_kernels(x_np, wrong):
+    """The card's check of the FMA probe (every element within 2 units in
+    the last place of the plain version) rejects what a wrong kernel
+    would give: the FMA loop left out, 16 x, or each multiply-add
+    rounded twice."""
+    x = torch.from_numpy(x_np)
+    plain = probes.fma_probe_plain(x)
+    assert probes.max_ulps(plain, plain) == 0
+    assert probes.max_ulps(wrong(x), plain) > 2
 
 
 def test_kernel_bench_runs_on_cpu():
@@ -136,16 +167,16 @@ def test_kernel_bench_runs_on_cpu():
 def test_kernel_costs_probes_and_bounds():
     """The probes' models at the bench's main shape: 260.1 MB read and
     written (0.0776 ms at 3.35 TB/s, bytes-bound) for the stream kernel,
-    17.7 GFLOP (0.264 ms at 67 TFLOP/s, operations-bound) for the FMA
+    17.66 GFLOP (0.2635 ms at 67 TFLOP/s, operations-bound) for the FMA
     probe."""
     costs = kb.kernel_costs(128, 81, 56, 11, 11)
     n = 128 * 81 * 56 * 56
     assert costs["stream_add_one"] == (8 * n, n)
-    assert costs["fma_probe"] == (8 * n, 544 * n)
+    assert costs["fma_probe"] == (8 * n, 543 * n)
     t, by = kb.bound_ms(*costs["stream_add_one"])
     assert by == "bytes" and abs(t - 0.0776) < 1e-4
     t, by = kb.bound_ms(*costs["fma_probe"])
-    assert by == "operations" and abs(t - 0.2640) < 1e-4
+    assert by == "operations" and abs(t - 0.2635) < 1e-4
 
 
 def test_synthetic_system_matches_jax_tool():
