@@ -18,6 +18,11 @@ non-zero, and no result line is printed):
    median CUDA-event times over 25 runs each (the host's launch gap
    included) and each kernel's own device time per call (25 calls under
    torch.profiler);
+3w. the seven kernels' wide instantiations (64 < nz <= 128) at nz = 72,
+   the stage size of the topology-varied families, on the synthetic
+   system with their coupling pattern (timed as in phase 3) and on its
+   two interchange variants (rows permuted; leading pivot 1e-8), each
+   output within 1e-4 relative of its plain version;
 3b. the kernel bench's probe kernels against their plain versions: the
    stream kernel (out = x + 1) over the bench's [B, S, nz, nz] array
    and over an odd n from a 4-byte offset (both exact), the FMA probe
@@ -55,8 +60,32 @@ non-zero, and no result line is printed):
 5m. mixed parity: ``reverse_parking_N80`` under ``mixed_solver_config()``
    and ``reverse_parking_dist_N80`` (unsigned distance) under
    ``mixed_solver_config(max_iter=200)``; each gap must be < 1e-3;
+7. the topology-varied reverse family at full width, as
+   ``bench/run_sweep.py`` runs a shard:
+   ``randomized_reverse_parking_specs(128, n_layouts=8, seed=0, N=80,
+   Ts=0.3, vary_topology=True)`` in float32 (nz = 72), one plan field
+   per layout on the static grid of the base spec,
+   ``grouped_lattice_warm_start`` and ``solve_batch_rescued`` under
+   ``f32_solver_config(max_iter=70)`` (rescue mu 1e-5) -- one warm-up
+   run, the counted run (``factor_se``, ``fwd_se`` and ``bwd_matvec_se``
+   must have launched), two more timed runs and one profiled run; at
+   least 116 lanes must converge, and every converged lane must clear
+   its own obstacles by d_min - 1e-3 at every stage and end within 1e-3
+   of its own goal;
+8p. the parallel family: the golden warm start of
+   ``parallel_parking_N80`` under ``parallel_fastpath_config()`` (gap <
+   1e-3), then ``randomized_parallel_parking_specs(32, n_layouts=4,
+   seed=0)`` under ``f32_solver_config(max_iter=250, mu_init=1e-3,
+   delta_w=1e-4)`` (``run_sweep.py --family parallel``), counted: at
+   least 16 lanes converged, each passing the checks of phase 7;
+8f. free time: ``reverse_parking_freetime_N80`` through
+   ``ipm.solve_free_time`` under ``f32_solver_config(max_iter=250)``
+   (gap < 1e-3; |tau - tau_gold| printed);
 6. one ``kernels`` JSON line (launches summed over the counted runs of
-   phases 3b, 4, 6d and 4m), then the device line, last.
+   phases 3b, 4, 6d, 4m, 7 and 8p; each solver kernel's nz = 72 numbers
+   from phase 3w beside its own), then the device line, last.
+
+Each phase prints its seconds.
 
 It imports nothing of JAX and nothing of ``obca_tpu``.
 """
@@ -76,6 +105,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 B_MAIN, N_MAIN, TS_MAIN, ITERS_MAIN = 128, 80, 0.3, 55
 SYNTH_TOL = 1e-4
+# Phase 7: bench/run_sweep.py's f32 defaults for the topology-varied
+# reverse family; phase 8p: its parallel-family settings.
+ITERS_RANDOM, RANDOM_MIN_CONVERGED, RANDOM_REPEATS = 70, 116, 3
+B_PARALLEL, ITERS_PARALLEL, PARALLEL_MIN_CONVERGED = 32, 250, 16
+LANE_TOL = 1e-3    # clearance below d_min and distance to xF allowed
 PROBE_ULPS = 2
 PARITY_TOL = 1e-3
 DENSE_TOL = 1e-3
@@ -426,13 +460,15 @@ def device_profile(fn):
     eight CUDA kernels with the most device time as (name, ms, calls),
     and {port kernel: (ms, calls)} for each of :data:`KERNELS` that ran,
     found by its CUDA function's name, ``<kernel>_kernel``).  Busy time
-    is the sum of kernel times (one stream, no overlap)."""
+    is the sum of kernel times (one stream, no overlap).  Only the
+    device is traced: with the host's operator events traced too, the
+    f32 main path's phase took 121.7 s on an H100 for about 30 s of
+    runs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -452,23 +488,29 @@ def device_profile(fn):
                          e.count) for e in top], ours
 
 
-def parity_gap(device, golden, cfg, signed=True):
+def parity_gap(device, golden, cfg, signed=True, family="reverse"):
     """max |U - U_gold| of ``cfg``'s solve of one golden instance from its
     warm start, in the configuration's iterate dtype, with the solve's
-    status and iterations."""
+    status and iterations and |tau - tau_gold|.  A free-time golden
+    (``fix_time`` 0) is solved by ``ipm.solve_free_time`` (its
+    iterations: the free-time phase's)."""
     import torch
-    from obca_torch import reverse_parking_spec
+    import obca_torch as ot
     from obca_torch.solver import ipm
 
     gold = np.load(os.path.join(ROOT, "oracle", "goldens",
                                 f"{golden}.npz"))
-    spec = reverse_parking_spec(N=int(gold["N"]), Ts=float(gold["Ts"]),
-                                signed=signed, dtype=cfg.dtype,
-                                device=device)
+    fix_time = bool(gold["fix_time"])
+    make = {"reverse": ot.reverse_parking_spec,
+            "parallel": ot.parallel_parking_spec}[family]
+    spec = make(N=int(gold["N"]), Ts=float(gold["Ts"]), signed=signed,
+                fix_time=fix_time, dtype=cfg.dtype, device=device)
     W0 = torch.as_tensor(gold["W0"], dtype=cfg.dtype, device=device)
-    res = ipm.solve_single(spec, cfg, W0)
+    solve = ipm.solve_single if fix_time else ipm.solve_free_time
+    res = solve(spec, cfg, W0)
     gap = float(np.abs(res.U.double().cpu().numpy() - gold["U"]).max())
-    return gap, int(res.status), int(res.iters)
+    return (gap, int(res.status), int(res.iters),
+            abs(float(res.tau) - float(gold["tau"])))
 
 
 def measure_main_path(bk, base, specs, cfg):
@@ -512,9 +554,8 @@ def measure_main_path(bk, base, specs, cfg):
     return main, cap
 
 
-def print_profile(label, base, specs, cfg, wall_median):
-    p_wall, p_busy, p_top, p_ours = device_profile(
-        lambda: run_main_path(base, specs, cfg))
+def print_profile(label, run, wall_median):
+    p_wall, p_busy, p_top, p_ours = device_profile(run)
     if p_busy > 0:
         print(f"profiled {label}: wall {p_wall:.3f} s, device busy "
               f"{p_busy:.3f} s ({100 * p_busy / wall_median:.1f}% of the "
@@ -556,19 +597,238 @@ def dense_vs_structured(bk, nw, rows, cols, K, ev, reg, rhs):
     }
 
 
+def wide_pattern():
+    """The stage layout and coupling pattern of the topology-varied
+    families (4 obstacles of 5 faces: nz = 72)."""
+    from obca_torch import nlp, reverse_parking_spec
+    from obca_torch.solver.kernels import blocktri_se as bk
+
+    L = nlp.layout_of(reverse_parking_spec(N=N_MAIN, Ts=TS_MAIN, max_obs=4,
+                                           max_faces=5, device="cpu"))
+    rows, cols = nlp.coupling_structure(L)
+    return L, rows, cols, bk.CouplingPattern.of(rows, cols)
+
+
+def interchange_system(K, reg, kind, seed=2):
+    """Stage blocks that need row interchanges, as the card tests build
+    them: every block's rows permuted ("permuted"), or its regularized
+    leading diagonal entry set to 1e-8 ("tiny_lead")."""
+    K = K.copy()
+    if kind == "tiny_lead":
+        K[:, :, 0, 0] = 1e-8 - reg[:, None, 0]
+        return K
+    rng = np.random.default_rng(seed)
+    perm = np.argsort(rng.random(K.shape[:3]), axis=-1)
+    return np.take_along_axis(K, perm[..., None], axis=2)
+
+
+def compare_wide_kernels(bk, bd, device, B=B_MAIN, S=N_MAIN + 1,
+                         timing=True):
+    """Phase 3w: the seven solver kernels at nz = 72 (their wide
+    instantiations) against their plain versions, on the synthetic
+    system with the families' coupling pattern and on its two
+    interchange variants.  Returns ({name: errors and times}, {kind:
+    {name: errors}}, (nz, nnz, C))."""
+    L, _, _, pat = wide_pattern()
+    nnz, C = len(pat.rows), len(pat.ucols)
+    K, ev, reg, r = synthetic_system(B, S, L.nw, L.nc, nnz, seed=3)
+    E = synthetic_dense_e(B, S, L.nz, seed=4)
+    res = compare_kernels(bk, pat, K, ev, reg, r, device, timing)
+    res.update(compare_dense_kernels(bd, K, E, reg, r, device, timing))
+    inter = {}
+    for kind in ("permuted", "tiny_lead"):
+        Ki = interchange_system(K, reg, kind)
+        inter[kind] = compare_kernels(bk, pat, Ki, ev, reg, r, device, False)
+        inter[kind].update(compare_dense_kernels(bd, Ki, E, reg, r, device,
+                                                 False))
+    return res, inter, (L.nz, nnz, C)
+
+
+def random_family_batch(device, family, B, n_layouts, N=N_MAIN, Ts=TS_MAIN,
+                        dtype=None, seed=0):
+    """``bench/run_sweep.py``'s shard: a randomized batch of ``family``
+    ("reverse": topology-varied; "parallel": its default, topology-
+    varied too) and the static lattice grid of the family's base spec
+    padded to 4 obstacles of 5 faces."""
+    import torch
+    import obca_torch as ot
+    from obca_torch.warmstart import lattice
+
+    dtype = dtype or torch.float32
+    if family == "reverse":
+        specs, layouts, _ = ot.randomized_reverse_parking_specs(
+            B, n_layouts=n_layouts, seed=seed, N=N, Ts=Ts,
+            vary_topology=True, dtype=dtype, device=device)
+        base = ot.reverse_parking_spec(N=N, Ts=Ts, max_obs=4, max_faces=5,
+                                       dtype=dtype, device=device)
+    else:
+        specs, layouts, _ = ot.randomized_parallel_parking_specs(
+            B, n_layouts=n_layouts, seed=seed, N=N, Ts=Ts, dtype=dtype,
+            device=device)
+        base = ot.parallel_parking_spec(N=N, Ts=Ts, max_obs=4, max_faces=5,
+                                        dtype=dtype, device=device)
+    return specs, layouts, lattice.LatticeConfig.for_spec(base)
+
+
+def run_grouped(specs, layouts, lcfg, cfg):
+    """One plan field per layout -> grouped lattice warm start ->
+    solve_batch_rescued (rescue mu 1e-5); the result and the seconds of
+    each stage."""
+    from obca_torch.solver import ipm
+    from obca_torch.warmstart import geometric
+
+    dev = specs.x0.device
+    t = [time.perf_counter()]
+    fields = geometric.layout_fields(layouts, lcfg)
+    _sync(dev)
+    t.append(time.perf_counter())
+    W0 = geometric.grouped_lattice_warm_start(specs, layouts, lcfg,
+                                              dtype=cfg.dtype, fields=fields)
+    _sync(dev)
+    t.append(time.perf_counter())
+    res = ipm.solve_batch_rescued(specs, cfg, W0, rescue_mu=1e-5)
+    _sync(dev)
+    t.append(time.perf_counter())
+    return res, {"plan_fields_s": t[1] - t[0], "warm_start_s": t[2] - t[1],
+                 "solve_s": t[3] - t[2], "wall_s": t[3] - t[0]}
+
+
+def lane_checks(specs, res):
+    """Each converged lane against its own geometry and goal: the
+    smallest clearance over its stages and real obstacles (the SAT gap,
+    which never exceeds the distance, and the exact polygon distance
+    wherever the gap is below d_min - LANE_TOL) minus d_min, and the
+    largest |x_N - xF|.  Returns (lanes checked, lanes whose clearance
+    falls below d_min - LANE_TOL, lanes off their goal by more than
+    LANE_TOL, worst clearance margin, worst goal error)."""
+    from obca_torch import geometry
+    from obca_torch import spec as tspec
+    from obca_torch.solver import ipm
+
+    ok = (res.status == ipm.STATUS_CONVERGED).cpu().numpy()
+    X = res.X.double()
+    n_clear = n_goal = 0
+    worst_clear, worst_goal = float("inf"), 0.0
+    for i in np.flatnonzero(ok):
+        sp = tspec.cast_floats(tspec.take(specs, int(i)), X.dtype)
+        d_min = float(sp.d_min)
+        x = X[i].to(sp.x0.device)
+        gap = geometry.ego_clearance_flat(x[:, 0], x[:, 1], x[:, 2],
+                                          sp.ego_g, sp.obstacles)
+        gap = gap.cpu().numpy()
+        ob = tspec.map_tensors(lambda t: t.cpu().numpy(), sp.obstacles)
+        ego = sp.ego_g.cpu().numpy()
+        xs = x.cpu().numpy()
+        for k in np.flatnonzero(gap < d_min - LANE_TOL):
+            gap[k] = min(
+                geometry.ego_obstacle_distance(xs[k, :3], ego, ob.A[m],
+                                               ob.b[m], ob.face_mask[m])
+                for m in range(ob.num_obs) if ob.obs_mask[m] > 0)
+        margin = float(gap.min()) - d_min
+        goal = float((x[-1] - sp.xF).abs().max())
+        worst_clear = min(worst_clear, margin)
+        worst_goal = max(worst_goal, goal)
+        n_clear += margin < -LANE_TOL
+        n_goal += goal > LANE_TOL
+    return int(ok.sum()), n_clear, n_goal, worst_clear, worst_goal
+
+
+def summarize(specs, res, secs, walls=None):
+    """Converged count, iterations, the stage seconds and rates of a
+    randomized-batch run, with its lane checks."""
+    from obca_torch.solver import ipm
+
+    status = res.status.cpu().numpy()
+    iters = res.iters.cpu().numpy()
+    n_conv = int((status == ipm.STATUS_CONVERGED).sum())
+    checked, n_clear, n_goal, worst_clear, worst_goal = lane_checks(specs,
+                                                                    res)
+    out = {
+        "B": int(specs.x0.shape[0]), "N": specs.N, "converged": n_conv,
+        "status_counts": {int(k): int(v) for k, v in
+                          zip(*np.unique(status, return_counts=True))},
+        "iters_median": float(np.median(iters)),
+        "iters_max": int(iters.max()),
+        **secs,
+        "converged_solves_per_s": n_conv / secs["wall_s"],
+        "lanes_checked": checked, "lanes_too_close": n_clear,
+        "lanes_off_goal": n_goal, "worst_clearance_margin": worst_clear,
+        "worst_goal_err": worst_goal,
+    }
+    if walls:
+        out["wall_s_runs"] = walls
+        out["wall_s_median"] = statistics.median(walls)
+        out["wall_s_spread"] = max(walls) - min(walls)
+        out["converged_solves_per_s_median"] = (
+            n_conv / statistics.median(walls))
+    return out
+
+
+def measure_random_family(bk, specs, layouts, lcfg, cfg, repeats):
+    """One warm-up run, the counted run (launch counts set to 0 just
+    before it and read just after), then repeats - 1 more timed runs.
+    Returns the summary of the counted run."""
+    run_grouped(specs, layouts, lcfg, cfg)
+    bk.reset_launches()
+    res, secs = run_grouped(specs, layouts, lcfg, cfg)
+    launches = dict(bk.launches)
+    walls = [secs["wall_s"]] + [
+        run_grouped(specs, layouts, lcfg, cfg)[1]["wall_s"]
+        for _ in range(repeats - 1)]
+    out = summarize(specs, res, secs, walls)
+    out["launches"] = launches
+    return out
+
+
+def check_random_family(label, out, min_converged):
+    if out["converged"] < min_converged:
+        raise RuntimeError(f"{label}: {out['converged']} lanes converged, "
+                           f"fewer than {min_converged}")
+    if out["lanes_too_close"] or out["lanes_off_goal"]:
+        raise RuntimeError(f"{label}: converged lanes fail their checks: "
+                           f"{out['lanes_too_close']} too close to an "
+                           f"obstacle, {out['lanes_off_goal']} off the "
+                           f"goal")
+
+
+class PhaseClock:
+    """Prints the seconds of each phase as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, phase):
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - self.t:.1f} s")
+        self.t = now
+
+
+def check_errors(label, res):
+    """Raise unless every output in ``res`` is finite and within
+    SYNTH_TOL (relative) of its plain version."""
+    for name, d in res.items():
+        for what, (_abs, rel, finite) in (
+                (k, v) for k, v in d.items() if isinstance(v, tuple)):
+            if not finite or rel > SYNTH_TOL:
+                raise RuntimeError(f"{label} {name}.{what} disagrees with "
+                                   f"its plain version: rel err {rel:.3e}")
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, ROOT)
-    from obca_torch import f32_solver_config, mixed_solver_config, nlp
+    from obca_torch import (f32_solver_config, mixed_solver_config, nlp,
+                            parallel_fastpath_config)
     from obca_torch.solver.kernels import blocktri_dense as bd
     from obca_torch.solver.kernels import blocktri_se as bk
     from obca_torch.solver.kernels import build
     from obca_torch.tools import kernel_bench as kb
 
     device = torch.device("cuda", 0)
+    clock = PhaseClock()
 
     # 1. The card.
     print(kb.card())
@@ -583,6 +843,7 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    clock.lap("1-2")
 
     # 3a. Kernels against their plain versions: synthetic systems.
     base, specs = main_path_batch(device)
@@ -600,17 +861,31 @@ def main():
     print_errors("synthetic", synth)
     costs = kb.kernel_costs(B_MAIN, S, nz, nnz, C)
     bounds = {name: kb.bound_ms(*c) for name, c in costs.items()}
+    check_errors("synthetic", synth)
     for name, d in synth.items():
-        for what, (_abs, rel, finite) in (
-                (k, v) for k, v in d.items() if isinstance(v, tuple)):
-            if not finite or rel > SYNTH_TOL:
-                raise RuntimeError(f"{name}.{what} disagrees with its plain "
-                                   f"version: rel err {rel:.3e}")
         print(f"time {name}: kernel {d['ms']:.4f} ms, device "
               f"{d['device_ms']:.4f} ms ({d['device_launches']:g} "
               f"launches a call), plain {d['plain_ms']:.4f} ms, bound "
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]})")
     launches = {name: 0 for name in KERNELS}
+    clock.lap("3")
+
+    # 3w. The wide instantiations (64 < nz <= 128) at nz = 72.
+    wide, wide_inter, (nz_w, nnz_w, C_w) = compare_wide_kernels(bk, bd,
+                                                                device)
+    print_errors("wide synthetic", wide)
+    for kind, res_k in wide_inter.items():
+        print_errors(f"wide {kind}", res_k)
+        check_errors(f"wide {kind}", res_k)
+    check_errors("wide synthetic", wide)
+    wide_bounds = {name: kb.bound_ms(*c) for name, c in kb.kernel_costs(
+        B_MAIN, S, nz_w, nnz_w, C_w).items()}
+    for name, d in wide.items():
+        print(f"time nz={nz_w} {name}: kernel {d['ms']:.4f} ms, device "
+              f"{d['device_ms']:.4f} ms ({d['device_launches']:g} "
+              f"launches a call), plain {d['plain_ms']:.4f} ms, bound "
+              f"{wide_bounds[name][0]:.4f} ms ({wide_bounds[name][1]})")
+    clock.lap("3w")
 
     # 3b. The kernel bench: its probe kernels against their plain
     # versions, then the bench itself, counted.
@@ -637,6 +912,7 @@ def main():
         print(f"measured_bound {name}: {t:.4f} ms at the measured stream "
               f"and FMA rates, {100 * t / d['device_ms']:.1f}% of its "
               f"device time")
+    clock.lap("3b")
 
     # 4. The f32 main path.
     cfg = f32_solver_config(max_iter=ITERS_MAIN)
@@ -653,8 +929,9 @@ def main():
     print(f"main path: kernels ~{kernel_s:.3f} s of "
           f"{main_f32['wall_s']:.3f} s wall (launches x synthetic median "
           f"time)")
-    print_profile("main path", base, specs, cfg,
+    print_profile("main path", lambda: run_main_path(base, specs, cfg),
                   statistics.median(main_f32["wall_s_runs"]))
+    clock.lap("4")
 
     # 3c. Kernels against their plain versions: the main path's real
     # first-iteration system (Ruiz-scaled, as the solver factors it).
@@ -669,14 +946,16 @@ def main():
                                    f"first-iteration system")
     print("first-iteration accuracy " + json.dumps(
         stage_inverse_accuracy(bk, patr, L.nw, Kr, evr, regr)))
+    clock.lap("3c")
 
     # 5. Parity against the float64 golden.
-    gap, g_status, g_iters = parity_gap(device, "reverse_parking_N80",
-                                        f32_solver_config())
+    gap, g_status, g_iters, _ = parity_gap(device, "reverse_parking_N80",
+                                           f32_solver_config())
     print(f"parity_gap_vs_oracle {gap:.3e} status {g_status} "
           f"iters {g_iters}")
     if not gap < PARITY_TOL:
         raise RuntimeError(f"parity gap {gap:.3e} >= {PARITY_TOL}")
+    clock.lap("5")
 
     # 6d. The dense-coupling solver against the structured one on the
     # f32 main path's first-iteration system.
@@ -693,6 +972,7 @@ def main():
                                f"make_kkt_solver")
     for name, n in dense["launches"].items():
         launches[name] += n
+    clock.lap("6d")
 
     # 4m. The mixed-precision main path (bench.py's BENCH_DTYPE=mixed).
     base64, specs64 = main_path_batch(device, dtype=torch.float64)
@@ -705,7 +985,8 @@ def main():
         raise RuntimeError(f"the mixed route did not run: launches {lm}")
     for name, n in lm.items():
         launches[name] += n
-    print_profile("mixed main path", base64, specs64, cfg_m,
+    print_profile("mixed main path",
+                  lambda: run_main_path(base64, specs64, cfg_m),
                   statistics.median(main_m["wall_s_runs"]))
     Km, evm, regm, patm = cap_m.system
     Sinv_m, Wc_m = bk.factor_se(Km, evm, regm, patm)
@@ -718,18 +999,76 @@ def main():
     if not solve_err[2] or solve_err[1] > SYNTH_TOL:
         raise RuntimeError(f"solve_se disagrees with its plain version on "
                            f"the mixed first-iteration system: {solve_err}")
+    clock.lap("4m")
 
     # 5m. Mixed parity against the float64 goldens.
     for golden, cfg_p, signed in (
             ("reverse_parking_N80", mixed_solver_config(), True),
             ("reverse_parking_dist_N80", mixed_solver_config(max_iter=200),
              False)):
-        gap, g_status, g_iters = parity_gap(device, golden, cfg_p, signed)
+        gap, g_status, g_iters, _ = parity_gap(device, golden, cfg_p,
+                                               signed)
         print(f"mixed_parity_gap {golden} {gap:.3e} status {g_status} "
               f"iters {g_iters}")
         if not gap < PARITY_TOL:
             raise RuntimeError(f"mixed parity gap {golden} {gap:.3e} >= "
                                f"{PARITY_TOL}")
+    clock.lap("5m")
+
+    # 7. The topology-varied reverse family at full width (nz = 72).
+    specs_r, layouts_r, lcfg_r = random_family_batch(device, "reverse",
+                                                     B_MAIN, 8)
+    if nlp.layout_of(specs_r).nz != nz_w:
+        raise RuntimeError("the reverse family is not at the wide nz")
+    cfg_r = f32_solver_config(max_iter=ITERS_RANDOM)
+    fam = measure_random_family(bk, specs_r, layouts_r, lcfg_r, cfg_r,
+                                RANDOM_REPEATS)
+    print("random_reverse " + json.dumps(fam))
+    for name in ("factor_se", "fwd_se", "bwd_matvec_se"):
+        if fam["launches"][name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched on the "
+                               f"randomized reverse family")
+    for name, n in fam["launches"].items():
+        launches[name] += n
+    check_random_family("random_reverse", fam, RANDOM_MIN_CONVERGED)
+    print_profile("random reverse",
+                  lambda: run_grouped(specs_r, layouts_r, lcfg_r, cfg_r),
+                  fam["wall_s_median"])
+    clock.lap("7")
+
+    # 8p. The parallel family: golden parity, then a randomized batch.
+    gap, g_status, g_iters, _ = parity_gap(
+        device, "parallel_parking_N80", parallel_fastpath_config(),
+        family="parallel")
+    print(f"parallel_parity_gap {gap:.3e} status {g_status} "
+          f"iters {g_iters}")
+    if not gap < PARITY_TOL:
+        raise RuntimeError(f"parallel parity gap {gap:.3e} >= "
+                           f"{PARITY_TOL}")
+    specs_p, layouts_p, lcfg_p = random_family_batch(device, "parallel",
+                                                     B_PARALLEL, 4)
+    cfg_par = f32_solver_config(max_iter=ITERS_PARALLEL, mu_init=1e-3,
+                                delta_w=1e-4)
+    bk.reset_launches()
+    res_p, secs_p = run_grouped(specs_p, layouts_p, lcfg_p, cfg_par)
+    par = summarize(specs_p, res_p, secs_p)
+    par["launches"] = dict(bk.launches)
+    print("random_parallel " + json.dumps(par))
+    for name, n in par["launches"].items():
+        launches[name] += n
+    check_random_family("random_parallel", par, PARALLEL_MIN_CONVERGED)
+    clock.lap("8p")
+
+    # 8f. Free time against its float64 golden.
+    gap, g_status, g_iters, dtau = parity_gap(
+        device, "reverse_parking_freetime_N80",
+        f32_solver_config(max_iter=ITERS_PARALLEL))
+    print(f"free_time_parity_gap {gap:.3e} tau_gap {dtau:.3e} status "
+          f"{g_status} iters {g_iters}")
+    if not gap < PARITY_TOL:
+        raise RuntimeError(f"free-time parity gap {gap:.3e} >= "
+                           f"{PARITY_TOL}")
+    clock.lap("8f")
 
     # 6. The kernels line, then the device line.
     kernels = []
@@ -746,6 +1085,15 @@ def main():
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": synth[name].get("library_ms"),
         })
+        if name in wide:
+            kernels[-1][f"nz{nz_w}"] = {
+                "max_abs_err": max(v[0] for v in wide[name].values()
+                                   if isinstance(v, tuple)),
+                "ms": wide[name]["ms"],
+                "device_ms": wide[name]["device_ms"],
+                "plain_ms": wide[name]["plain_ms"],
+                "bound_ms": wide_bounds[name][0],
+                "bound_by": wide_bounds[name][1]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,9 @@ from obca_torch.spec import (  # noqa: E402
     f32_solver_config,
     mixed_solver_config,
     parallel_fastpath_config,
+    parallel_parking_spec,
+    randomized_parallel_parking_specs,
+    randomized_reverse_parking_specs,
     reverse_parking_spec,
 )
 
@@ -34,5 +37,8 @@ __all__ = [
     "f32_solver_config",
     "mixed_solver_config",
     "parallel_fastpath_config",
+    "parallel_parking_spec",
+    "randomized_parallel_parking_specs",
+    "randomized_reverse_parking_specs",
     "reverse_parking_spec",
 ]

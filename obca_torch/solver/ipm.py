@@ -122,6 +122,46 @@ def _repeat(t, n):
     return t.repeat_interleave(n, dim=0)
 
 
+def _cold_duals(L, spec, W0, mu0_b, in_row, lo, hi, has_lo, has_hi):
+    """The cold dual start at W0 (barrier parameter mu0_b [B, 1, 1]):
+    slacks max(c, 1e-2) and capped barrier-consistent multipliers on the
+    inequality rows, mu / distance on the bounds."""
+    one = torch.ones((), dtype=W0.dtype, device=W0.device)
+    zero = torch.zeros((), dtype=W0.dtype, device=W0.device)
+    c0 = nlp.all_constraints(L, W0, spec)
+    s0 = torch.where(in_row > 0, torch.clamp(c0, min=1e-2), one)
+    # Capped barrier-consistent inequality multipliers (a warm start
+    # violating an inequality would otherwise get y0 = mu/1e-2).
+    nu0 = torch.where(in_row > 0, -torch.clamp(mu0_b / s0, max=1.0), zero)
+    zL0 = torch.where(has_lo > 0, mu0_b / torch.clamp(W0 - lo, min=1e-4),
+                      zero)
+    zU0 = torch.where(has_hi > 0, mu0_b / torch.clamp(hi - W0, min=1e-4),
+                      zero)
+    return DualState(nu=nu0, s=s0, zL=zL0, zU=zU0)
+
+
+def cold_dual_state(spec, cfg, W0) -> DualState:
+    """The solver's cold dual start at W0 (what a solve without
+    ``duals0`` begins from), as a :class:`DualState` in ``cfg.dtype``.
+
+    For callers that must pass a dual state, such as a warm re-solve
+    after a failed one.  ``spec`` batched (W0 [B, N+1, nw]) or a single
+    instance (W0 [N+1, nw]; the result then has no batch axis).
+    """
+    single = spec.x0.dim() == 1
+    if single:
+        spec, W0 = spec_mod.stack([spec]), W0[None]
+    L = nlp.layout_of(spec)
+    dt = cfg.dtype
+    spec = spec_mod.cast_floats(spec, dt)
+    _, _, in_row, lo, hi, has_lo, has_hi = _masks_and_bounds(L, spec)
+    mu0_b = torch.full((spec.x0.shape[0], 1, 1), float(cfg.mu_init),
+                       dtype=dt, device=spec.x0.device)
+    d = _cold_duals(L, spec, W0.to(dt), mu0_b, in_row, lo, hi, has_lo,
+                    has_hi)
+    return spec_mod.map_tensors(lambda t: t[0], d) if single else d
+
+
 def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
     """Build (initial state, step, layout, final_check) for a batch.
 
@@ -165,8 +205,6 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
         return nlp.lagrangian_gradient(L, W, nu, spec, active)
 
     mu0 = torch.full((B,), float(cfg.mu_init), dtype=dt, device=dev)
-    mu0_b = mu0[:, None, None]
-    c0 = nlp.all_constraints(L, W0, spec)
     if duals0 is not None:
         nu0 = torch.where(
             in_row > 0, torch.clamp(duals0.nu.to(dt), max=-1e-12),
@@ -178,15 +216,9 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
         zU0 = torch.where(has_hi > 0,
                           torch.clamp(duals0.zU.to(dt), 1e-12, 1e12), zero)
     else:
-        s0 = torch.where(in_row > 0, torch.clamp(c0, min=1e-2), one)
-        # Capped barrier-consistent inequality multipliers (a warm start
-        # violating an inequality would otherwise get y0 = mu/1e-2).
-        nu0 = torch.where(in_row > 0, -torch.clamp(mu0_b / s0, max=1.0),
-                          zero)
-        zL0 = torch.where(has_lo > 0,
-                          mu0_b / torch.clamp(W0 - lo, min=1e-4), zero)
-        zU0 = torch.where(has_hi > 0,
-                          mu0_b / torch.clamp(hi - W0, min=1e-4), zero)
+        d0 = _cold_duals(L, spec, W0, mu0[:, None, None], in_row, lo, hi,
+                         has_lo, has_hi)
+        nu0, s0, zL0, zU0 = d0.nu, d0.s, d0.zL, d0.zU
 
     if (duals0 is None or cfg.dual_ls_warm) and cfg.dual_init_ls:
         # Ipopt-style least-squares estimate of the equality multipliers
@@ -542,6 +574,32 @@ def solve_single(spec, cfg, W0=None, duals0: DualState | None = None):
 def solve_batch(specs, cfg, W0=None):
     """Solve a stacked-spec batch (leading axis B on every leaf)."""
     return _run(specs, cfg, W0)
+
+
+def solve_free_time(spec, cfg, W0=None):
+    """Free-time solve (``fix_time=False``: the horizon's time scaling
+    tau is a variable) by homotopy: the fixed-time problem first, then
+    the free-time problem warm-started from its solution and its full
+    dual state at mu_init = min(mu_init, 1e-3).  A cold free-time solve
+    wanders: the global time-scaling column makes the first barrier
+    subproblems nearly singular along tau.
+
+    ``spec`` batched (W0 [B, N+1, nw]) or a single instance (W0
+    [N+1, nw]; the result then has no batch axis).  Returns the
+    free-time result.
+    """
+    single = spec.x0.dim() == 1
+    specs = spec_mod.stack([spec]) if single else spec
+    if W0 is not None and single:
+        W0 = W0[None]
+    res_fix = _run(dataclasses.replace(specs, fix_time=True), cfg, W0)
+    cfg_free = dataclasses.replace(
+        cfg, mu_init=torch.clamp(cfg.mu_init, max=1e-3))
+    res = _run(specs, cfg_free, res_fix.W, res_fix.duals)
+    if single:
+        return SolveResult(*[
+            spec_mod.map_tensors(lambda t: t[0], f) for f in res])
+    return res
 
 
 def donor_features(specs):

@@ -11,7 +11,7 @@ The wrappers follow the rules of ``blocktri_se``: the plain version for
 a CPU tensor; for a CUDA tensor float32, shape, contiguity and device
 are checked, the kernel is launched and counted in the shared
 ``runtime.launches``, or the call raises.  All three take nz up to
-``NZ_MAX`` (64) on the card and raise above it.
+``NZ_MAX`` (128) on the card and raise above it.
 """
 
 from __future__ import annotations

@@ -21,15 +21,20 @@
 // a step fetched 6 steps before it computes).  A pattern too large for
 // 8 buffers takes 4; one too large for 4 is refused.
 // 352 threads: eight product warps (four lanes per row of K_t), two
-// sweep warps and the fetching warp; nz is capped at 64.
+// sweep warps and the fetching warp, for nz <= 64.  For 64 < nz <= 128
+// (the randomized-obstacle families, nz = 72) the same design with
+// sixteen product warps and four sweep warps (672 threads) and a ring of
+// 8 (about 194 KB at nz = 72, C = 11); where 8 do not fit, a ring of 3
+// without K_{s+1}, which the product warps then read from device memory.
+// nz is capped at 128.
 #include "bwd_sweep.cuh"
 
-constexpr int kNzMax = kSweepMax;  // 64
+constexpr int kNzMax = 128;
 
-template <int kRing, bool kSmallC>
-__global__ void __launch_bounds__(bwd_threads(true))
+template <int kRowsMax, int kRing, bool kSmallC, bool kKRing>
+__global__ void __launch_bounds__(bwd_threads(kRowsMax, true))
     bwd_matvec_se_kernel(BwdArgs a) {
-  bwd_sweep<true, kRing, kSmallC>(a);
+  bwd_sweep<kRowsMax, true, kRing, kSmallC, kKRing>(a);
 }
 
 OBCA_EXPORT int obca_bwd_matvec_se_f32(
@@ -47,11 +52,24 @@ OBCA_EXPORT int obca_bwd_matvec_se_f32(
                       aligned16(K),
                   p, Ap};
   const bool small = C <= kCmax;
+  if (nz <= 64) {
+    if (bwd_smem<true, 8>(a) <= kSmemMax)
+      return launch_bwd<64, true, 8>(
+          small ? bwd_matvec_se_kernel<64, 8, true, true>
+                : bwd_matvec_se_kernel<64, 8, false, true>,
+          a, B, stream);
+    return launch_bwd<64, true, 4>(
+        small ? bwd_matvec_se_kernel<64, 4, true, true>
+              : bwd_matvec_se_kernel<64, 4, false, true>,
+        a, B, stream);
+  }
   if (bwd_smem<true, 8>(a) <= kSmemMax)
-    return launch_bwd<true, 8>(small ? bwd_matvec_se_kernel<8, true>
-                                     : bwd_matvec_se_kernel<8, false>,
-                               a, B, stream);
-  return launch_bwd<true, 4>(small ? bwd_matvec_se_kernel<4, true>
-                                   : bwd_matvec_se_kernel<4, false>,
-                             a, B, stream);
+    return launch_bwd<128, true, 8>(
+        small ? bwd_matvec_se_kernel<128, 8, true, true>
+              : bwd_matvec_se_kernel<128, 8, false, true>,
+        a, B, stream);
+  return launch_bwd<128, true, 3, false>(
+      small ? bwd_matvec_se_kernel<128, 3, true, false>
+            : bwd_matvec_se_kernel<128, 3, false, false>,
+      a, B, stream);
 }

@@ -21,16 +21,18 @@
 // stage is fetched 14 steps before it is swept, far more than the
 // memory latency).  A pattern too wide for 16 buffers (C near nz at the
 // cap) takes a ring of 4; one too wide for 4 is refused.
-// 96 threads: two sweep warps, one per row, and the fetching warp; nz
-// is capped at 64.
+// 96 threads: two sweep warps, one per row, and the fetching warp, for
+// nz <= 64.  For 64 < nz <= 128 (the randomized-obstacle families, nz =
+// 72) the same sweep with four sweep warps (160 threads) and a ring of
+// 16, or of 3 where 16 do not fit.  nz is capped at 128.
 #include "bwd_sweep.cuh"
 
-constexpr int kNzMax = kSweepMax;  // 64
+constexpr int kNzMax = 128;
 
-template <int kRing, bool kSmallC>
-__global__ void __launch_bounds__(bwd_threads(false))
+template <int kRowsMax, int kRing, bool kSmallC>
+__global__ void __launch_bounds__(bwd_threads(kRowsMax, false))
     bwd_se_kernel(BwdArgs a) {
-  bwd_sweep<false, kRing, kSmallC>(a);
+  bwd_sweep<kRowsMax, false, kRing, kSmallC>(a);
 }
 
 OBCA_EXPORT int obca_bwd_se_f32(const float* Wc, const float* y,
@@ -45,11 +47,20 @@ OBCA_EXPORT int obca_bwd_se_f32(const float* Wc, const float* y,
                   nz % 4 == 0 && aligned16(Wc) && aligned16(y), p,
                   nullptr};
   const bool small = C <= kCmax;
+  if (nz <= 64) {
+    if (bwd_smem<false, 16>(a) <= kSmemMax)
+      return launch_bwd<64, false, 16>(
+          small ? bwd_se_kernel<64, 16, true> : bwd_se_kernel<64, 16, false>,
+          a, B, stream);
+    return launch_bwd<64, false, 4>(
+        small ? bwd_se_kernel<64, 4, true> : bwd_se_kernel<64, 4, false>, a,
+        B, stream);
+  }
   if (bwd_smem<false, 16>(a) <= kSmemMax)
-    return launch_bwd<false, 16>(
-        small ? bwd_se_kernel<16, true> : bwd_se_kernel<16, false>, a, B,
-        stream);
-  return launch_bwd<false, 4>(
-      small ? bwd_se_kernel<4, true> : bwd_se_kernel<4, false>, a, B,
-      stream);
+    return launch_bwd<128, false, 16>(
+        small ? bwd_se_kernel<128, 16, true> : bwd_se_kernel<128, 16, false>,
+        a, B, stream);
+  return launch_bwd<128, false, 3>(
+      small ? bwd_se_kernel<128, 3, true> : bwd_se_kernel<128, 3, false>, a,
+      B, stream);
 }

@@ -45,34 +45,64 @@
 // p_s and u_s live in four-slot buffers (slot s % 4): the sweep of step
 // g+1 writes the slot that no lagged row of step g reads.  Shared memory
 // does not grow with S.
+//
+// Two instantiations by kRowsMax, the rows a block holds: 64 (two sweep
+// warps, eight product warps) for nz <= 64, and 128 (four sweep warps,
+// sixteen product warps) for 64 < nz <= 128, where the randomized-
+// obstacle families run (nz = 72).  Their code is the same; the wide
+// one's register arrays are twice as long.  A ring whose stage buffers
+// do not fit may hold 3 of them (any kRing >= 3 keeps step g+1 fetched
+// before step g ends), and with kKRing false the product warps read
+// K_{s+1} straight from device memory instead of the ring, which keeps
+// the stage small enough at nz = 128 with C near nz.
 #pragma once
 
 #include "common.cuh"
 
 constexpr int kLanes = 4;          // lanes per row of K_t in the product
-constexpr int kProductWarps = 8;   // 64 rows of four lanes
 constexpr int kPSlots = 4;         // p_s, p_{s+1}, p_{s+2}, the next p
-constexpr int kSweepMax = 64;      // rows of the two sweep warps
 constexpr int kCmax = 12;          // columns of the unrolled sweep row
 constexpr int kEregs = 4;          // coupling entries held in registers
 constexpr int kSmemMax = 232448;   // shared memory a block can use
 
-// Threads of a block: the product warps, two sweep warps, one fetching.
-constexpr int bwd_threads(bool matvec) {
-  return 32 * ((matvec ? kProductWarps : 0) + 3);
+// Warps of a block that holds kRowsMax rows: product warps (eight rows
+// of four lanes each) and sweep warps (one thread a row).
+__host__ __device__ constexpr int product_warps(int rows_max) {
+  return rows_max / 8;
+}
+__host__ __device__ constexpr int sweep_warps(int rows_max) {
+  return rows_max / 32;
+}
+
+// Threads of a block: the product warps, the sweep warps, one fetching.
+__host__ __device__ constexpr int bwd_threads(int rows_max, bool matvec) {
+  return 32 * ((matvec ? product_warps(rows_max) : 0) +
+               sweep_warps(rows_max) + 1);
+}
+
+// Buffer of step g in a ring of kRing.
+template <int kRing>
+__device__ __forceinline__ int ring_at(int g) {
+  if constexpr ((kRing & (kRing - 1)) == 0) {
+    return g & (kRing - 1);
+  } else {
+    return g % kRing;
+  }
 }
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 // Offsets (floats) of a step's parts inside one stage buffer; each part
-// starts 16-byte aligned.
+// starts 16-byte aligned.  K_{s+1} rides along only with the matvec and
+// kring.
 struct StageLayout {
   int wc, y, k, ev, slot;
-  __host__ __device__ StageLayout(bool matvec, int nz, int nnz, int C)
+  __host__ __device__ StageLayout(bool matvec, bool kring, int nz, int nnz,
+                                  int C)
       : wc(0),
         y(round4(nz * C)),
         k(y + round4(nz)),
-        ev(k + round4(nz * nz)),
+        ev(k + (kring ? round4(nz * nz) : 0)),
         slot(matvec ? ev + round4(2 * nnz) : k) {}
 };
 
@@ -101,13 +131,13 @@ struct BwdArgs {
 
 // Dynamic shared memory of a launch: mbarriers, the ring, the p and u
 // slots and ucols.
-template <bool kMatvec, int kRing>
+template <bool kMatvec, int kRing, bool kKRing = true>
 inline size_t bwd_smem(const BwdArgs& a) {
-  const StageLayout lay(kMatvec, a.nz, a.nnz, a.C);
-  const size_t floats = static_cast<size_t>(kRing) * lay.slot +
+  const StageLayout lay(kMatvec, kKRing, a.nz, a.nnz, a.C);
+  const size_t floats = round4(2 * kRing) +
+                        static_cast<size_t>(kRing) * lay.slot +
                         kPSlots * (round4(a.nz) + uslot(a.C));
-  return sizeof(unsigned long long) * kRing + sizeof(float) * floats +
-         sizeof(int) * a.C;
+  return sizeof(float) * floats + sizeof(int) * a.C;
 }
 
 // One row of the sweep from shared memory: y - sum_c wrow[c] u[c], u
@@ -148,20 +178,22 @@ __device__ __forceinline__ float sweep_row(const float* wrow,
   return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
-template <bool kMatvec, int kRing, bool kSmallC>
+template <int kRowsMax, bool kMatvec, int kRing, bool kSmallC,
+          bool kKRing = true>
 __device__ __forceinline__ void bwd_sweep(const BwdArgs& a) {
-  static_assert(kRing >= 4 && (kRing & (kRing - 1)) == 0,
-                "a power of two, and step g+1 fetched before step g ends");
-  constexpr int kPW = kMatvec ? kProductWarps : 0;
+  static_assert(kRing >= 3, "step g+1 fetched before step g ends");
+  constexpr int kPW = kMatvec ? product_warps(kRowsMax) : 0;
+  constexpr int kSW = sweep_warps(kRowsMax);
   const int S = a.S, nz = a.nz, nnz = a.nnz, C = a.C;
   const bool vec = a.vec;
-  const StageLayout lay(kMatvec, nz, nnz, C);
+  const StageLayout lay(kMatvec, kKRing, nz, nnz, C);
   const int nz4 = round4(nz), us = uslot(C);
 
   extern __shared__ __align__(16) float smem[];
   unsigned long long* mbar =
       reinterpret_cast<unsigned long long*>(smem);  // [kRing]
-  float* ring = smem + 2 * kRing;                   // [kRing][lay.slot]
+  // The ring starts 16-byte aligned after the mbarriers.
+  float* ring = smem + round4(2 * kRing);           // [kRing][lay.slot]
   float* pbuf = ring + kRing * lay.slot;            // [kPSlots][nz4]
   float* ubuf = pbuf + kPSlots * nz4;               // [kPSlots][us]
   int* uc = reinterpret_cast<int*>(ubuf + kPSlots * us);  // [C]
@@ -171,8 +203,8 @@ __device__ __forceinline__ void bwd_sweep(const BwdArgs& a) {
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int i = tid - 32 * kPW;  // row of a sweep thread
-  const bool sweeper = warp >= kPW && warp < kPW + 2 && i < nz;
-  const bool fetcher = warp == kPW + 2;
+  const bool sweeper = warp >= kPW && warp < kPW + kSW && i < nz;
+  const bool fetcher = warp == kPW + kSW;
   const int nsteps = kMatvec ? S + 1 : S;
   const size_t vsz = static_cast<size_t>(S) * nz;
   const float* Wb = a.Wc + static_cast<size_t>(b) * (S - 1) * nz * C;
@@ -183,10 +215,10 @@ __device__ __forceinline__ void bwd_sweep(const BwdArgs& a) {
   auto fetch = [&](int g) {
     if (g < nsteps) {
       const int s = S - 1 - g;
-      float* dst = ring + (g & (kRing - 1)) * lay.slot;
+      float* dst = ring + ring_at<kRing>(g) * lay.slot;
       const bool has_w = g >= 1 && s >= 0;  // Wc_s (and ev_s)
       const bool has_y = s >= 0;
-      const bool has_k = kMatvec && g >= 1;  // K_{s+1}
+      const bool has_k = kMatvec && kKRing && g >= 1;  // K_{s+1}
       const int sw = has_y ? s : 0;          // s, kept in range
       const float* wsrc = Wb + static_cast<size_t>(sw) * nz * C;
       const float* ysrc = yb + static_cast<size_t>(sw) * nz;
@@ -195,7 +227,7 @@ __device__ __forceinline__ void bwd_sweep(const BwdArgs& a) {
         ksrc = a.K + (b * vsz + static_cast<size_t>(s + 1) * nz) * nz;
       if (vec) {
         if (lane == 0) {
-          unsigned long long* bar = mbar + (g & (kRing - 1));
+          unsigned long long* bar = mbar + ring_at<kRing>(g);
           mbar_expect_tx(bar, 4u * ((has_w ? nz * C : 0) + (has_y ? nz : 0) +
                                     (has_k ? nz * nz : 0)));
           if (has_w) bulk_copy(dst + lay.wc, wsrc, 4u * nz * C, bar);
@@ -276,7 +308,7 @@ __device__ __forceinline__ void bwd_sweep(const BwdArgs& a) {
 
   for (int g = 0; g < nsteps; ++g) {
     const int s = S - 1 - g;
-    const float* st = ring + (g & (kRing - 1)) * lay.slot;
+    const float* st = ring + ring_at<kRing>(g) * lay.slot;
     if (sweeper && s >= 0) {
       float v = st[lay.y + i];
       if (g > 0)
@@ -291,7 +323,7 @@ __device__ __forceinline__ void bwd_sweep(const BwdArgs& a) {
       // Step g+1 has landed: the barrier publishes it to every warp.
       cp_async_wait<kRing - 3>();
       const int h = g + 1;
-      if (vec) mbar_wait(mbar + (h & (kRing - 1)), (h / kRing) & 1);
+      if (vec) mbar_wait(mbar + ring_at<kRing>(h), (h / kRing) & 1);
     }
     // p_s is published; every thread is done with step g-1's buffer,
     // which the next fetch refills.
@@ -302,29 +334,37 @@ __device__ __forceinline__ void bwd_sweep(const BwdArgs& a) {
       const int t = s + 1;
       float acc0 = 0.0f, acc1 = 0.0f;
       if (row < nz) {
-        const float* Krow = st + lay.k + row * nz;
+        const float* Krow =
+            kKRing ? st + lay.k + row * nz
+                   : a.K + (b * vsz + static_cast<size_t>(t) * nz + row) * nz;
         const float* pt = pbuf + (t & (kPSlots - 1)) * nz4;
         if (vec) {
-          // Chunks l, l+4, ...: every load first, then the FMAs.
+          // Chunks l, l+4, ...: every load of a batch of four first,
+          // then its FMAs (one batch for kRowsMax = 64; two halve the
+          // registers of the wide instantiation).
+          constexpr int kBatch = 4;
           const int nch = nz >> 2;
           const float4* K4 = reinterpret_cast<const float4*>(Krow);
           const float4* p4 = reinterpret_cast<const float4*>(pt);
-          float4 kq[kSweepMax / 16], pq[kSweepMax / 16];
 #pragma unroll
-          for (int k = 0; k < kSweepMax / 16; ++k)
-            if (l + 4 * k < nch) {
-              kq[k] = K4[l + 4 * k];
-              pq[k] = p4[l + 4 * k];
-            }
+          for (int k0 = 0; k0 < kRowsMax / 16; k0 += kBatch) {
+            float4 kq[kBatch], pq[kBatch];
 #pragma unroll
-          for (int k = 0; k < kSweepMax / 16; ++k)
-            if (l + 4 * k < nch) {
-              acc0 = fmaf(kq[k].x, pq[k].x, fmaf(kq[k].y, pq[k].y, acc0));
-              acc1 = fmaf(kq[k].z, pq[k].z, fmaf(kq[k].w, pq[k].w, acc1));
-            }
+            for (int k = 0; k < kBatch; ++k)
+              if (l + 4 * (k0 + k) < nch) {
+                kq[k] = K4[l + 4 * (k0 + k)];
+                pq[k] = p4[l + 4 * (k0 + k)];
+              }
+#pragma unroll
+            for (int k = 0; k < kBatch; ++k)
+              if (l + 4 * (k0 + k) < nch) {
+                acc0 = fmaf(kq[k].x, pq[k].x, fmaf(kq[k].y, pq[k].y, acc0));
+                acc1 = fmaf(kq[k].z, pq[k].z, fmaf(kq[k].w, pq[k].w, acc1));
+              }
+          }
         } else {
 #pragma unroll
-          for (int k = 0; k < kSweepMax / 4; ++k)
+          for (int k = 0; k < kRowsMax / 4; ++k)
             if (l + 4 * k < nz)
               acc0 = fmaf(Krow[l + 4 * k], pt[l + 4 * k], acc0);
         }
@@ -352,13 +392,14 @@ __device__ __forceinline__ void bwd_sweep(const BwdArgs& a) {
 }
 
 // Launch bwd_sweep through `kernel`, its __global__ instance.
-template <bool kMatvec, int kRing, typename Kernel>
+template <int kRowsMax, bool kMatvec, int kRing, bool kKRing = true,
+          typename Kernel>
 inline int launch_bwd(Kernel kernel, const BwdArgs& a, int B,
                       void* stream) {
-  const size_t smem = bwd_smem<kMatvec, kRing>(a);
+  const size_t smem = bwd_smem<kMatvec, kRing, kKRing>(a);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, bwd_threads(kMatvec), smem,
+  kernel<<<B, bwd_threads(kRowsMax, kMatvec), smem,
            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,8 +57,24 @@
 //   into that layout and scalar stores (`vec` false).
 // Shared memory: six buffers of 64 P floats (K_k, E_{k-1} twice, the
 // transposed Sinv_{k-1}, W_{k-1}), 86 KB at nz=56, and a few arrays of
-// at most 64; it does not grow with S.  256 threads at most; nz is
-// capped at kNzMax = 64 (the wrapper raises above it; the entry point
+// at most 64; it does not grow with S.  256 threads at most.
+//
+// factor_dense_wide_kernel takes 64 < nz <= 128 (the randomized-obstacle
+// families run at nz = 72).  Six buffers of P^2 floats do not fit in
+// 227 KB past nz = 96, so it keeps three, sized from nz (196 KB at
+// nz = 128):
+// - kbuf holds K_k, then S_k in place; ebuf E_{k-1}; xbuf the transposed
+//   Sinv_{k-1}, then W_{k-1}, then the transposed Sinv_k.  Each thread
+//   keeps its tiles of W_{k-1} (two at most: (P/4)^2 tiles over 4 nz
+//   threads) in registers across the barrier after which they overwrite
+//   the transposed Sinv_{k-1}.
+// - The inverse is the same elimination with 32 rows a thread
+//   (gauss_jordan.cuh), staged transposed into xbuf only; Sinv_k goes
+//   out from there with scalar stores.
+// - K_{k+1} and E_k are fetched into kbuf and ebuf right after each
+//   thread has loaded its cells of S_k, so the fetch overlaps the
+//   elimination but not the products.
+// nz is capped at 128 (the wrapper raises above it; the entry point
 // refuses it too).
 #include "gauss_jordan.cuh"
 
@@ -95,10 +111,15 @@ __device__ __forceinline__ void tile_product(const float* X, const float* Y,
   }
 }
 
+constexpr int kNzMax = gj_nz_max<16>();       // 64
+constexpr int kWideNzMax = gj_nz_max<32>();   // 128
+
 __global__ void __launch_bounds__(kNzMax * kGroups)
 factor_dense_kernel(const float* __restrict__ K, const float* __restrict__ E,
                     int S, int nz, bool vec, float* __restrict__ Sinv,
                     float* __restrict__ W) {
+  constexpr int kRows = 16;
+  constexpr int kCbSlot = gj_cb_slot<kRows>();
   extern __shared__ __align__(16) float smem[];
   const int P = (nz + 3) & ~3;  // row stride of the stage buffers
   const int bsz = kNzMax * P;   // floats of one stage buffer
@@ -232,23 +253,184 @@ factor_dense_kernel(const float* __restrict__ K, const float* __restrict__ E,
   }
 }
 
+__global__ void __launch_bounds__(kWideNzMax * kGroups)
+factor_dense_wide_kernel(const float* __restrict__ K,
+                         const float* __restrict__ E, int S, int nz,
+                         bool vec, float* __restrict__ Sinv,
+                         float* __restrict__ W) {
+  constexpr int kRows = 32;
+  constexpr int kCbSlot = gj_cb_slot<kRows>();
+  constexpr int kTiles = 2;  // output tiles a thread holds at most
+  extern __shared__ __align__(16) float smem[];
+  const int P = (nz + 3) & ~3;  // row stride and rows of the buffers
+  const int bsz = P * P;
+  float* colbuf = smem;                // [2][kCbSlot] published column
+  float* kbuf = colbuf + 2 * kCbSlot;  // [bsz] K_k, then S_k
+  float* ebuf = kbuf + bsz;            // [bsz] E_{k-1}
+  float* xbuf = ebuf + bsz;            // [bsz] Sinv_{k-1}', W_{k-1}, Sinv_k'
+  float* pinv = xbuf + bsz;            // [kWideNzMax] 1 / pivot of step p
+  int* prow = reinterpret_cast<int*>(pinv + kWideNzMax);  // [..] r_p
+  int* pof = prow + kWideNzMax;  // [kWideNzMax] step at which row i pivoted
+  const GjPivots pv{colbuf, pinv, prow, pof};
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int j = tid >> 2;             // column
+  const int g = tid & (kGroups - 1);  // rows kRows*g .. kRows*g+kRows-1
+  const int i0 = g * kRows;
+  const int jc = j < nz ? j : 0;
+  const int P4 = P >> 2;
+  const int ntiles = P4 * P4;
+  const int blk = nz * nz;
+  const size_t sblk = static_cast<size_t>(blk);
+  const float* Kb = K + static_cast<size_t>(b) * S * sblk;
+  const float* Eb = E + static_cast<size_t>(b) * (S - 1) * sblk;
+  float* Sb = Sinv + static_cast<size_t>(b) * S * sblk;
+  float* Wb = W + static_cast<size_t>(b) * (S - 1) * sblk;
+
+  // K_s into kbuf and E_{s-1} into ebuf, as one cp.async group.
+  auto fetch = [&](int s) {
+    const float* ks = Kb + s * sblk;
+    const float* es = s > 0 ? Eb + (s - 1) * sblk : nullptr;
+    if (vec) {
+      // P = nz: the buffers' rows are contiguous.
+      for (int e = tid; e < blk / 4; e += nt) {
+        cp_async16(kbuf + 4 * e, ks + 4 * e);
+        if (es) cp_async16(ebuf + 4 * e, es + 4 * e);
+      }
+    } else {
+      Walk2 it(tid, nt, nz);
+      for (int e = tid; e < blk; e += nt, it.next()) {
+        const int d = it.row * P + it.col;
+        cp_async4(kbuf + d, ks + e);
+        if (es) cp_async4(ebuf + d, es + e);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Zero the buffers (their padding stays zero) and the published
+  // column's slots, then fetch stage 0.
+  for (int e = tid; e < 2 * kCbSlot + 3 * bsz; e += nt) smem[e] = 0.0f;
+  __syncthreads();
+  fetch(0);
+
+  float a[kRows];
+  for (int k = 0; k < S; ++k) {
+    cp_async_wait<0>();
+    // K_k and E_{k-1} visible to all; the write-out of Sinv_{k-1} from
+    // xbuf done.
+    __syncthreads();
+    if (k > 0) {
+      // W_{k-1} = Sinv_{k-1} E_{k-1}: into registers, and out.
+      float4 w[kTiles][4];
+#pragma unroll
+      for (int m = 0; m < kTiles; ++m) {
+        const int t = tid + m * nt;
+        if (t < ntiles) {
+          const int ti = t / P4, tj = t - (t / P4) * P4;
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            w[m][r] = make_float4(0.f, 0.f, 0.f, 0.f);
+          tile_product<false>(xbuf, ebuf, P, nz, ti, tj, w[m]);
+          float* Wk = Wb + (k - 1) * sblk;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 4 * ti + r;
+            if (i < nz) {
+              if (vec) {
+                reinterpret_cast<float4*>(Wk + i * nz)[tj] = w[m][r];
+              } else {
+                const float wv[4] = {w[m][r].x, w[m][r].y, w[m][r].z,
+                                     w[m][r].w};
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  if (4 * tj + c < nz) Wk[i * nz + 4 * tj + c] = wv[c];
+              }
+            }
+          }
+        }
+      }
+      // Every read of Sinv_{k-1}' done: W_{k-1} takes its place.
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < kTiles; ++m) {
+        const int t = tid + m * nt;
+        if (t < ntiles) {
+          const int ti = t / P4, tj = t - (t / P4) * P4;
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            reinterpret_cast<float4*>(xbuf + (4 * ti + r) * P)[tj] = w[m][r];
+        }
+      }
+      __syncthreads();
+      // S_k = K_k - E'_{k-1} W_{k-1}, in place of K_k.
+#pragma unroll
+      for (int m = 0; m < kTiles; ++m) {
+        const int t = tid + m * nt;
+        if (t < ntiles) {
+          const int ti = t / P4, tj = t - (t / P4) * P4;
+          float4* kt = reinterpret_cast<float4*>(kbuf + 4 * ti * P) + tj;
+          float4 sk[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sk[r] = kt[r * P4];
+          tile_product<true>(ebuf, xbuf, P, nz, ti, tj, sk);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) kt[r * P4] = sk[r];
+        }
+      }
+      __syncthreads();
+    }
+    // Rows past nz read row nz-1 and are zeroed.
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      a[q] = i0 + q < nz ? kbuf[min(i0 + q, nz - 1) * P + jc] : 0.0f;
+    // Every read of kbuf and ebuf done: stage k+1 may come in.
+    __syncthreads();
+    if (k + 1 < S) fetch(k + 1);
+
+    gj_eliminate(a, nz, j, g, pv);
+
+    // Stage Sinv_k' into xbuf (W_{k-1} is no longer read), then write
+    // Sinv_k out from it.
+    gj_each(a, nz, j, g, pv,
+            [&](int pi, int col, float v) { xbuf[col * P + pi] = v; });
+    __syncthreads();
+    float* Sk = Sb + k * sblk;
+    Walk2 it(tid, nt, nz);
+    for (int e = tid; e < blk; e += nt, it.next())
+      Sk[e] = xbuf[it.col * P + it.row];
+  }
+}
+
 OBCA_EXPORT int obca_factor_dense_f32(const float* K, const float* E, int B,
                                       int S, int nz, float* Sinv, float* W,
                                       void* stream) {
-  if (nz < 1 || nz > kNzMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (nz < 1 || nz > kWideNzMax)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int threads = (kGroups * nz + 31) / 32 * 32;
   // 16-byte copies and stores need whole 16-byte rows and aligned
   // blocks.
   const bool vec = nz % 4 == 0 && aligned16(K) && aligned16(E) &&
                    aligned16(Sinv) && aligned16(W);
   const int P = (nz + 3) & ~3;
-  const size_t smem = sizeof(float) * (2 * kCbSlot + 6 * kNzMax * P +
-                                       kNzMax) +
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nz > kNzMax) {
+    const size_t smem =
+        sizeof(float) * (2 * gj_cb_slot<32>() + 3 * P * P + kWideNzMax) +
+        sizeof(int) * 2 * kWideNzMax;
+    cudaError_t err = allow_smem(factor_dense_wide_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    factor_dense_wide_kernel<<<B, threads, smem, st>>>(K, E, S, nz, vec,
+                                                       Sinv, W);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = sizeof(float) * (2 * gj_cb_slot<16>() +
+                                       6 * kNzMax * P + kNzMax) +
                       sizeof(int) * 2 * kNzMax;
   cudaError_t err = allow_smem(factor_dense_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  factor_dense_kernel<<<B, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      K, E, S, nz, vec, Sinv, W);
+  factor_dense_kernel<<<B, threads, smem, st>>>(K, E, S, nz, vec, Sinv, W);
   return static_cast<int>(cudaGetLastError());
 }

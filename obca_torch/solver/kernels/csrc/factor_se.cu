@@ -45,17 +45,27 @@
 //   stores.  Wc_k and the next Schur update walk each column's
 //   coupling entries (a list built once), not all nnz of them.
 // Shared memory: 2 nz^2 + nz C + C^2 + 2 nnz floats and a few arrays of
-// at most 64; it does not grow with S.  nz is capped at kNzMax = 64 (the
-// wrapper raises above it; the entry point refuses it too).
+// at most 64; it does not grow with S.
+//
+// Two instantiations of the same code, picked by nz at launch: 16 rows
+// a thread for nz <= 64 (256 threads at most), and 32 rows a thread for
+// 64 < nz <= 128 (512 threads at most; the randomized-obstacle families
+// run at nz = 72).  Its shared memory must fit in 227 KB: about 137 KB
+// at nz = 128 and C = 11, but a pattern with C near nz at nz = 128 does
+// not fit and its launch is refused.  nz is capped at 128 (the wrapper
+// raises above it; the entry point refuses it too).
 #include "gauss_jordan.cuh"
 
-__global__ void __launch_bounds__(kNzMax * kGroups)
+template <int kRows>
+__global__ void __launch_bounds__(gj_nz_max<kRows>() * kGroups)
 factor_se_kernel(const float* __restrict__ K, const float* __restrict__ ev,
                  const float* __restrict__ reg, const int* __restrict__ rows,
                  const int* __restrict__ cidx,
                  const int* __restrict__ ucols, int S, int nz, int nnz,
                  int C, bool vec, float* __restrict__ Sinv,
                  float* __restrict__ Wc) {
+  constexpr int kNzMax = gj_nz_max<kRows>();
+  constexpr int kCbSlot = gj_cb_slot<kRows>();
   extern __shared__ __align__(16) float smem[];
   const int blk = nz * nz;
   float* colbuf = smem;               // [2][kCbSlot] published column
@@ -186,23 +196,39 @@ factor_se_kernel(const float* __restrict__ K, const float* __restrict__ ev,
   }
 }
 
+// Launches factor_se_kernel<kRows> with its shared memory.
+template <int kRows>
+static int launch_factor_se(const float* K, const float* ev,
+                            const float* reg, const int* rows,
+                            const int* cidx, const int* ucols, int B, int S,
+                            int nz, int nnz, int C, float* Sinv, float* Wc,
+                            void* stream) {
+  constexpr int kNzMax = gj_nz_max<kRows>();
+  const int threads = (kGroups * nz + 31) / 32 * 32;
+  // 16-byte copies need nz even (so nz^2 % 4 == 0) and aligned blocks.
+  const bool vec = nz % 2 == 0 && aligned16(K) && aligned16(Sinv);
+  const size_t smem =
+      sizeof(float) * (2 * gj_cb_slot<kRows>() + 2 * nz * nz + nz * C +
+                       C * C + kNzMax + 2 * nnz) +
+      sizeof(int) * (3 * kNzMax + 2 * nnz + C + 1);
+  cudaError_t err = allow_smem(factor_se_kernel<kRows>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  factor_se_kernel<kRows>
+      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+          K, ev, reg, rows, cidx, ucols, S, nz, nnz, C, vec, Sinv, Wc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 OBCA_EXPORT int obca_factor_se_f32(const float* K, const float* ev,
                                    const float* reg, const int* rows,
                                    const int* cidx, const int* ucols, int B,
                                    int S, int nz, int nnz, int C,
                                    float* Sinv, float* Wc, void* stream) {
-  if (nz < 1 || nz > kNzMax || C < 1)
+  if (nz < 1 || nz > gj_nz_max<32>() || C < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (kGroups * nz + 31) / 32 * 32;
-  // 16-byte copies need nz even (so nz^2 % 4 == 0) and aligned blocks.
-  const bool vec = nz % 2 == 0 && aligned16(K) && aligned16(Sinv);
-  const size_t smem =
-      sizeof(float) * (2 * kCbSlot + 2 * nz * nz + nz * C + C * C + kNzMax +
-                       2 * nnz) +
-      sizeof(int) * (3 * kNzMax + 2 * nnz + C + 1);
-  cudaError_t err = allow_smem(factor_se_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  factor_se_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      K, ev, reg, rows, cidx, ucols, S, nz, nnz, C, vec, Sinv, Wc);
-  return static_cast<int>(cudaGetLastError());
+  if (nz <= gj_nz_max<16>())
+    return launch_factor_se<16>(K, ev, reg, rows, cidx, ucols, B, S, nz,
+                                nnz, C, Sinv, Wc, stream);
+  return launch_factor_se<32>(K, ev, reg, rows, cidx, ucols, B, S, nz, nnz,
+                              C, Sinv, Wc, stream);
 }

@@ -32,16 +32,23 @@
 //   reads and two shuffles.  The lanes of a 128-bit shared-memory phase
 //   read 4 rows x 2 adjacent chunks, which fall on distinct banks at
 //   nz = 56 (row stride 14 chunks).
-// - 256 threads; nz is capped at 64.  Shapes with nz % 4 != 0 or an
-//   unaligned block take 4-byte cp.async and scalar reads instead.
+// - 256 threads for nz <= 64.  Shapes with nz % 4 != 0 or an unaligned
+//   block take 4-byte cp.async and scalar reads instead.
 // Shared memory: kRing (nz^2 + nz + nnz) + 2 nz floats, independent of S.
+//
+// A second instantiation of the same code for 64 < nz <= 128 (the
+// randomized-obstacle families run at nz = 72): 512 threads, so four
+// lanes still make each row, and a ring of 4 stage buffers where it
+// fits in shared memory (nz up to about 118), else of 2 (the fetch of
+// stage k+1 then overlaps stage k alone).  nz is capped at 128.
 #include "common.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kLanes = 4;                    // lanes per row of Sinv_k
-constexpr int kRing = 4;                     // stage buffers in flight
-constexpr int kNzMax = kThreads / kLanes;    // 64
+constexpr int kLanes = 4;      // lanes per row of Sinv_k
+constexpr int kNzMax = 128;    // the wide instantiation's rows
+constexpr int kSmemMax = 232448;  // shared memory a block can use
 
+// kThreads / kLanes rows; kRing stage buffers in flight (a power of 2).
+template <int kThreads, int kRing>
 __global__ void __launch_bounds__(kThreads)
 fwd_se_kernel(const float* __restrict__ Sinv, const float* __restrict__ ev,
               const float* __restrict__ r, const int* __restrict__ rows,
@@ -158,10 +165,31 @@ fwd_se_kernel(const float* __restrict__ Sinv, const float* __restrict__ ev,
       yprev[row] = acc;
       yb[static_cast<size_t>(k) * nz + row] = acc;
     }
-    // Buffer (k + 3) % kRing last held stage k-1, read before the
+    // Buffer (k + kRing - 1) % kRing last held stage k-1, read before the
     // barrier at the top of this stage.
     if (plane >= 0) fetch(k + kRing - 1);
   }
+}
+
+// Shared memory of a launch with kRing stage buffers.
+template <int kRing>
+static size_t fwd_se_smem(int nz, int slot, int nnz) {
+  return sizeof(float) * (2 * kRing + kRing * slot + 2 * ((nz + 3) & ~3)) +
+         sizeof(int) * (2 * nnz + nz + 1);
+}
+
+template <int kThreads, int kRing>
+static int launch_fwd_se(const float* Sinv, const float* ev, const float* r,
+                         const int* rows, const int* cols, int B, int S,
+                         int nz, int nnz, int slot, bool vec, float* y,
+                         void* stream) {
+  const size_t smem = fwd_se_smem<kRing>(nz, slot, nnz);
+  cudaError_t err = allow_smem(fwd_se_kernel<kThreads, kRing>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fwd_se_kernel<kThreads, kRing>
+      <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          Sinv, ev, r, rows, cols, S, nz, nnz, slot, vec, y);
+  return static_cast<int>(cudaGetLastError());
 }
 
 OBCA_EXPORT int obca_fwd_se_f32(const float* Sinv, const float* ev,
@@ -173,12 +201,12 @@ OBCA_EXPORT int obca_fwd_se_f32(const float* Sinv, const float* ev,
   // blocks.
   const bool vec = nz % 4 == 0 && aligned16(Sinv) && aligned16(r);
   const int slot = (nz * nz + nz + nnz + 3) / 4 * 4;
-  const size_t smem =
-      sizeof(float) * (2 * kRing + kRing * slot + 2 * ((nz + 3) & ~3)) +
-      sizeof(int) * (2 * nnz + nz + 1);
-  cudaError_t err = allow_smem(fwd_se_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_se_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      Sinv, ev, r, rows, cols, S, nz, nnz, slot, vec, y);
-  return static_cast<int>(cudaGetLastError());
+  if (nz <= 64)
+    return launch_fwd_se<256, 4>(Sinv, ev, r, rows, cols, B, S, nz, nnz,
+                                 slot, vec, y, stream);
+  if (fwd_se_smem<4>(nz, slot, nnz) <= kSmemMax)
+    return launch_fwd_se<512, 4>(Sinv, ev, r, rows, cols, B, S, nz, nnz,
+                                 slot, vec, y, stream);
+  return launch_fwd_se<512, 2>(Sinv, ev, r, rows, cols, B, S, nz, nnz, slot,
+                               vec, y, stream);
 }

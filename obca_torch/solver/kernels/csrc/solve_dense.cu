@@ -44,9 +44,8 @@
 // Shapes that break the bulk copy's 16-byte rule (nz % 4 != 0, or an
 // unaligned base) take 4-byte cp.async for every part and scalar reads
 // (`vec` false).  Shared memory: kRing (2 nz^2 + nz) floats and 128 more
-// (101 KB at nz=56), independent of S.  288 threads; nz is capped at
-// kNzMax = 64 (the wrapper raises above it; the entry point refuses it
-// too).
+// (101 KB at nz=56), independent of S.  288 threads for nz <= 64 (the
+// wrapper raises above the cap of 128; the entry point refuses it too).
 //
 // bwd_dense.  The first design took 0.2223 ms per call at that shape on
 // an H100: 1024 threads, one warp per row of W_k read from device memory
@@ -61,28 +60,43 @@
 //   with float4 reads and two shuffles, as fwd_dense's second phase
 //   (quad_row_dot); one barrier a stage, since x_k needs all of x_{k+1}.
 // The same 4-byte route for odd nz or an unaligned base.  Shared memory:
-// kBwdRing (nz^2 + nz) floats and 128 more (102 KB at nz=56); nz is
-// capped at kNzMax.
+// kBwdRing (nz^2 + nz) floats and 128 more (102 KB at nz=56).
+//
+// Both have a second instantiation for 64 < nz <= 128 (the randomized-
+// obstacle families run at nz = 72): sixteen compute warps, so four
+// lanes still make each row or output, and register arrays twice as
+// long.  Two stages of Sinv_k and E_{k-1} do not fit in shared memory at
+// nz = 128, so the wide fwd_dense streams Sinv_k and r_k alone through
+// its ring (4 buffers, or 2 where 4 do not fit) and reads E_{k-1} from
+// device memory in the E'y phase, every load of a thread issued before
+// its FMAs.  The wide bwd_dense keeps a ring of 8, or of 2 where 8 do
+// not fit.  A ring of 2 still has stage k+1 fetched before stage k
+// ends, but overlaps one stage only.  nz is capped at 128.
 #include "common.cuh"
 
-constexpr int kWarps = 8;                    // compute warps
-constexpr int kThreads = 32 * (kWarps + 1);  // and one fetching warp
-constexpr int kLanes = 4;                    // lanes per output or row
-constexpr int kNzMax = 32 * kWarps / kLanes;  // 64
-constexpr int kRing = 4;                     // fwd_dense's stage buffers
-constexpr int kBwdRing = 8;                  // bwd_dense's stage buffers
+constexpr int kLanes = 4;         // lanes per output or row
+constexpr int kSmemMax = 232448;  // shared memory a block can use
+
+// kWarps compute warps (8 or 16) hold kWarps * 8 rows; one fetching warp.
+__host__ __device__ constexpr int dense_threads(int warps) {
+  return 32 * (warps + 1);
+}
+__host__ __device__ constexpr int dense_nz_max(int warps) {
+  return 32 * warps / kLanes;
+}
+constexpr int kNzMax = dense_nz_max(16);  // 128
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 // Offsets (floats) of a stage's parts inside one ring buffer; each part
-// starts 16-byte aligned.
+// starts 16-byte aligned.  E_{k-1} rides along only with ering.
 struct FwdLayout {
   int sinv, e, r, slot;
-  __host__ __device__ explicit FwdLayout(int nz)
+  __host__ __device__ FwdLayout(int nz, bool ering)
       : sinv(0),
         e(round4(nz * nz)),
-        r(2 * round4(nz * nz)),
-        slot(2 * round4(nz * nz) + round4(nz)) {}
+        r((ering ? 2 : 1) * round4(nz * nz)),
+        slot(r + round4(nz)) {}
 };
 
 // The same for bwd_dense's W_k and y_k.
@@ -93,12 +107,13 @@ struct BwdLayout {
 };
 
 // Row `row` of an nz x nz block in shared memory (mrow points at it)
-// times the vector v (shared memory, kNzMax floats, zero past nz): lane
+// times the vector v (shared memory, kNz floats, zero past nz): lane
 // part pl = 0..3 of the row's four lanes sums chunks pl, pl+4, ...
 // (float4 when vec), loads before FMAs, and two shuffles give each of
 // the four lanes the total.  The quad's lanes differ in lane bits 0 and
 // 3 (lane = 16 quad + 8 h + 2 rr + par, pl = 2 h + par), so the lanes
 // of a 128-bit shared-memory phase fall on distinct banks at nz = 56.
+template <int kNz>
 __device__ __forceinline__ float quad_row_dot(const float* mrow,
                                               const float* v, int nz,
                                               int pl, bool vec) {
@@ -107,28 +122,28 @@ __device__ __forceinline__ float quad_row_dot(const float* mrow,
     const int nch = nz >> 2;
     const float4* m4 = reinterpret_cast<const float4*>(mrow);
     const float4* v4 = reinterpret_cast<const float4*>(v);
-    float4 mq[kNzMax / 16], vq[kNzMax / 16];
+    float4 mq[kNz / 16], vq[kNz / 16];
 #pragma unroll
-    for (int u = 0; u < kNzMax / 16; ++u) {
+    for (int u = 0; u < kNz / 16; ++u) {
       const int c = pl + kLanes * u;
       mq[u] = c < nch ? m4[c] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       vq[u] = v4[c];
     }
 #pragma unroll
-    for (int u = 0; u < kNzMax / 16; ++u) {
+    for (int u = 0; u < kNz / 16; ++u) {
       acc0 = fmaf(mq[u].x, vq[u].x, fmaf(mq[u].y, vq[u].y, acc0));
       acc1 = fmaf(mq[u].z, vq[u].z, fmaf(mq[u].w, vq[u].w, acc1));
     }
   } else {
-    float mv[kNzMax / kLanes], vv[kNzMax / kLanes];
+    float mv[kNz / kLanes], vv[kNz / kLanes];
 #pragma unroll
-    for (int u = 0; u < kNzMax / kLanes; ++u) {
+    for (int u = 0; u < kNz / kLanes; ++u) {
       const int c = pl + kLanes * u;
       mv[u] = c < nz ? mrow[c] : 0.0f;
       vv[u] = v[c];
     }
 #pragma unroll
-    for (int u = 0; u < kNzMax / kLanes; u += 2) {
+    for (int u = 0; u < kNz / kLanes; u += 2) {
       acc0 = fmaf(mv[u], vv[u], acc0);
       acc1 = fmaf(mv[u + 1], vv[u + 1], acc1);
     }
@@ -139,13 +154,15 @@ __device__ __forceinline__ float quad_row_dot(const float* mrow,
   return acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int kWarps, int kRing, bool kERing>
+__global__ void __launch_bounds__(dense_threads(kWarps))
 fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
                  const float* __restrict__ r, int S, int nz, bool vec,
                  float* __restrict__ y) {
-  static_assert((kRing & (kRing - 1)) == 0 && kRing >= 3,
+  static_assert((kRing & (kRing - 1)) == 0 && kRing >= 2,
                 "a power of two, and stage k+1 fetched before stage k ends");
-  const FwdLayout lay(nz);
+  constexpr int kNzMax = dense_nz_max(kWarps);
+  const FwdLayout lay(nz, kERing);
   extern __shared__ __align__(16) float smem[];
   unsigned long long* mbar =
       reinterpret_cast<unsigned long long*>(smem);  // [kRing]
@@ -171,7 +188,7 @@ fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
     if (s < S) {
       float* dst = ring + (s & (kRing - 1)) * lay.slot;
       const float* ssrc = Sb + s * sblk;
-      const float* esrc = s > 0 ? Eb + (s - 1) * sblk : nullptr;
+      const float* esrc = kERing && s > 0 ? Eb + (s - 1) * sblk : nullptr;
       const float* rsrc = rb + static_cast<size_t>(s) * nz;
       if (vec) {
         if (lane == 0) {
@@ -225,7 +242,8 @@ fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
     } else {
       float s0 = 0.0f, s1 = 0.0f;
       if (k > 0) {
-        const float* ec = st + lay.e + oic;
+        const float* ec =
+            (kERing ? st + lay.e : Eb + (k - 1) * sblk) + oic;
         float ev[kNzMax / kLanes], yv[kNzMax / kLanes];
 #pragma unroll
         for (int u = 0; u < kNzMax / kLanes; ++u) {
@@ -247,8 +265,8 @@ fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
     // yhat is published.
     __syncthreads();
     if (!fetcher) {
-      const float acc =
-          quad_row_dot(st + lay.sinv + rowc * nz, yhat, nz, pl, vec);
+      const float acc = quad_row_dot<kNzMax>(st + lay.sinv + rowc * nz,
+                                             yhat, nz, pl, vec);
       if (row < nz && pl == 0) {
         yprev[row] = acc;
         yb[static_cast<size_t>(k) * nz + row] = acc;
@@ -264,11 +282,13 @@ fwd_dense_kernel(const float* __restrict__ Sinv, const float* __restrict__ E,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int kWarps, int kBwdRing>
+__global__ void __launch_bounds__(dense_threads(kWarps))
 bwd_dense_kernel(const float* __restrict__ W, const float* __restrict__ y,
                  int S, int nz, bool vec, float* __restrict__ x) {
-  static_assert((kBwdRing & (kBwdRing - 1)) == 0 && kBwdRing >= 3,
+  static_assert((kBwdRing & (kBwdRing - 1)) == 0 && kBwdRing >= 2,
                 "a power of two, and step j+1 fetched before step j ends");
+  constexpr int kNzMax = dense_nz_max(kWarps);
   const BwdLayout lay(nz);
   extern __shared__ __align__(16) float smem[];
   unsigned long long* mbar =
@@ -350,8 +370,9 @@ bwd_dense_kernel(const float* __restrict__ W, const float* __restrict__ y,
         if (vec) mbar_wait(mbar + (h & (kBwdRing - 1)), (h / kBwdRing) & 1);
       }
     } else {
-      const float acc = quad_row_dot(st + lay.w + rowc * nz,
-                                     xs + (j & 1) * kNzMax, nz, pl, vec);
+      const float acc = quad_row_dot<kNzMax>(st + lay.w + rowc * nz,
+                                             xs + (j & 1) * kNzMax, nz, pl,
+                                             vec);
       if (row < nz && pl == 0) {
         const int k = S - 2 - j;
         const float v = st[lay.y + row] - acc;
@@ -365,6 +386,25 @@ bwd_dense_kernel(const float* __restrict__ W, const float* __restrict__ y,
   }
 }
 
+template <int kWarps, int kRing, bool kERing>
+static size_t fwd_dense_smem(int nz) {
+  return sizeof(float) * (2 * kRing + kRing * FwdLayout(nz, kERing).slot +
+                          2 * dense_nz_max(kWarps));
+}
+
+template <int kWarps, int kRing, bool kERing>
+static int launch_fwd_dense(const float* Sinv, const float* E,
+                            const float* r, int B, int S, int nz, bool vec,
+                            float* y, void* stream) {
+  const size_t smem = fwd_dense_smem<kWarps, kRing, kERing>(nz);
+  auto kernel = fwd_dense_kernel<kWarps, kRing, kERing>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, dense_threads(kWarps), smem,
+           static_cast<cudaStream_t>(stream)>>>(Sinv, E, r, S, nz, vec, y);
+  return static_cast<int>(cudaGetLastError());
+}
+
 OBCA_EXPORT int obca_fwd_dense_f32(const float* Sinv, const float* E,
                                    const float* r, int B, int S, int nz,
                                    float* y, void* stream) {
@@ -373,13 +413,31 @@ OBCA_EXPORT int obca_fwd_dense_f32(const float* Sinv, const float* E,
   // blocks.
   const bool vec = nz % 4 == 0 && aligned16(Sinv) && aligned16(E) &&
                    aligned16(r);
-  const size_t smem =
-      sizeof(float) * (2 * kRing + kRing * FwdLayout(nz).slot + 2 * kNzMax);
-  cudaError_t err = allow_smem(fwd_dense_kernel, smem);
+  if (nz <= dense_nz_max(8))
+    return launch_fwd_dense<8, 4, true>(Sinv, E, r, B, S, nz, vec, y,
+                                        stream);
+  if (fwd_dense_smem<16, 4, false>(nz) <= kSmemMax)
+    return launch_fwd_dense<16, 4, false>(Sinv, E, r, B, S, nz, vec, y,
+                                          stream);
+  return launch_fwd_dense<16, 2, false>(Sinv, E, r, B, S, nz, vec, y,
+                                        stream);
+}
+
+template <int kWarps, int kBwdRing>
+static size_t bwd_dense_smem(int nz) {
+  return sizeof(float) * (2 * kBwdRing + kBwdRing * BwdLayout(nz).slot +
+                          2 * dense_nz_max(kWarps));
+}
+
+template <int kWarps, int kBwdRing>
+static int launch_bwd_dense(const float* W, const float* y, int B, int S,
+                            int nz, bool vec, float* x, void* stream) {
+  const size_t smem = bwd_dense_smem<kWarps, kBwdRing>(nz);
+  auto kernel = bwd_dense_kernel<kWarps, kBwdRing>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_dense_kernel<<<B, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(Sinv, E, r, S, nz,
-                                                          vec, y);
+  kernel<<<B, dense_threads(kWarps), smem,
+           static_cast<cudaStream_t>(stream)>>>(W, y, S, nz, vec, x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -387,12 +445,9 @@ OBCA_EXPORT int obca_bwd_dense_f32(const float* W, const float* y, int B,
                                    int S, int nz, float* x, void* stream) {
   if (nz < 1 || nz > kNzMax) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = nz % 4 == 0 && aligned16(W) && aligned16(y);
-  const size_t smem = sizeof(float) * (2 * kBwdRing +
-                                       kBwdRing * BwdLayout(nz).slot +
-                                       2 * kNzMax);
-  cudaError_t err = allow_smem(bwd_dense_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dense_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      W, y, S, nz, vec, x);
-  return static_cast<int>(cudaGetLastError());
+  if (nz <= dense_nz_max(8))
+    return launch_bwd_dense<8, 8>(W, y, B, S, nz, vec, x, stream);
+  if (bwd_dense_smem<16, 8>(nz) <= kSmemMax)
+    return launch_bwd_dense<16, 8>(W, y, B, S, nz, vec, x, stream);
+  return launch_bwd_dense<16, 2>(W, y, B, S, nz, vec, x, stream);
 }

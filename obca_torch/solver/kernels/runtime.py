@@ -76,9 +76,11 @@ def on_cpu(kernel, t):
     return t.device.type == "cpu"
 
 
-# The largest stage size nz that the block-tridiagonal kernels take
-# (kNzMax in their sources); a larger nz on the card raises.
-NZ_MAX = 64
+# The largest stage size nz that the block-tridiagonal kernels take; a
+# larger nz on the card raises.  Each kernel has two compile-time
+# instantiations, one for nz <= 64 and one for 64 < nz <= 128, and its
+# entry point picks one by nz at launch.
+NZ_MAX = 128
 
 
 def check_nz(kernel, nz):

@@ -285,3 +285,246 @@ def reverse_parking_spec(N=80, Ts=0.3, fix_time=True, signed=True,
         d_min=d_min, fix_time=fix_time, signed=signed, dtype=dtype,
         device=device,
     )
+
+
+def parallel_parking_spec(N=80, Ts=0.3, fix_time=True, signed=True,
+                          d_min=0.05, max_obs=None, max_faces=None,
+                          dtype=torch.float64,
+                          device="cuda") -> ProblemSpec:
+    """Parallel parking into an 8 m curbside slot between two blocks,
+    with the curb as a third obstacle; the car starts on the street and
+    parks 0.2 m off the curb."""
+    obs = obstacles_from_vertices(
+        [
+            [(-15.0, 5.0), (-4.0, 5.0), (-4.0, 0.0), (-15.0, 0.0)],
+            [(4.0, 5.0), (15.0, 5.0), (15.0, 0.0), (4.0, 0.0)],
+            [(-15.0, 2.5), (15.0, 2.5), (15.0, 0.0), (-15.0, 0.0)],
+        ],
+        max_obs=max_obs, max_faces=max_faces, dtype=dtype, device=device,
+    )
+    x0 = [-7.0, 7.0, 0.0, 0.0]
+    xF = [-1.35, 3.7, 0.0, 0.0]
+    return _base_spec(
+        x0, xF, obs, N=N, Ts=Ts, xy_lo=[-12.0, 2.6], xy_hi=[12.0, 10.0],
+        d_min=d_min, fix_time=fix_time, signed=signed, dtype=dtype,
+        device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Randomized-obstacle families.  Built on the CPU with numpy from one
+# ``np.random.default_rng(seed)`` in the JAX package's draw order (a seed
+# gives its specs bit for bit in float64), then moved to the device once
+# per leaf.
+# ---------------------------------------------------------------------------
+
+def _np_sat_clearance(px, py, h, ego_g, verts_list):
+    """Exact SAT clearance (numpy, on the host) of the ego rectangle at
+    poses (px, py, h) [n] against convex polygons given as CCW vertex
+    arrays: the smallest separation gap over the obstacles (negative =
+    overlap).  The numpy twin of ``geometry.ego_clearance_flat``, for
+    building specs without device work."""
+    px, py, h = (np.asarray(a, np.float64) for a in (px, py, h))
+    c, s = np.cos(h), np.sin(h)
+    front, rear, wl, wr = (float(v) for v in ego_g)
+    body = np.asarray(
+        [(front, wl), (front, -wr), (-rear, -wr), (-rear, wl)])
+    ex = px[:, None] + c[:, None] * body[:, 0] - s[:, None] * body[:, 1]
+    ey = py[:, None] + s[:, None] * body[:, 0] + c[:, None] * body[:, 1]
+    P = np.stack([ex, ey], axis=-1)                     # [n, 4, 2]
+    axes_ego = np.stack(
+        [np.stack([c, s], -1), np.stack([-s, c], -1)], axis=1)
+    out = np.full(px.shape, np.inf)
+    for V in verts_list:
+        V = np.asarray(V, np.float64)                   # [v, 2]
+        edges = np.roll(V, -1, axis=0) - V
+        nrm = np.stack([edges[:, 1], -edges[:, 0]], -1)
+        nrm = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+        ax = np.concatenate(
+            [axes_ego,
+             np.broadcast_to(nrm[None], (len(px),) + nrm.shape)],
+            axis=1)                                     # [n, a, 2]
+        projP = np.einsum("nkd,nad->nka", P, ax)
+        projQ = np.einsum("vd,nad->nva", V, ax)
+        gap1 = projQ.min(1) - projP.max(1)
+        gap2 = projP.min(1) - projQ.max(1)
+        out = np.minimum(out, np.maximum(gap1, gap2).max(-1))
+    return out
+
+
+def _grouped_batch(rng, layout_list, layout_verts, base, B, n_layouts,
+                   pose_spread, psi_spread, dtype, device):
+    """(specs, layouts, group) from per-layout specs built on the CPU:
+    each layout serves a contiguous group of B / n_layouts lanes, whose
+    start poses are drawn from ``rng`` and rejection-sampled (40 rounds,
+    then the layout's base pose) to clear every obstacle by at least
+    d_min + 0.02 (stage 0 is pinned at x0)."""
+    layouts = stack(layout_list)
+    group = B // n_layouts
+    specs = map_tensors(lambda t: t.repeat_interleave(group, dim=0),
+                        layouts)
+    x0 = np.repeat(layouts.x0.numpy(), group, axis=0)
+    dpose = np.zeros((B, 4))
+    dpose[:, :2] = rng.uniform(-pose_spread, pose_spread, size=(B, 2))
+    dpose[:, 2] = rng.uniform(-psi_spread, psi_spread, size=B)
+
+    ego_g = base.ego_g.double().numpy()
+    margin = float(base.d_min) + 0.02
+    for li in range(n_layouts):
+        sl = np.arange(li * group, (li + 1) * group)
+        for _ in range(40):
+            cand = x0[sl] + dpose[sl]
+            clr = _np_sat_clearance(cand[:, 0], cand[:, 1], cand[:, 2],
+                                    ego_g, layout_verts[li])
+            bad = np.flatnonzero(clr < margin)
+            if not bad.size:
+                break
+            idx = sl[bad]
+            dpose[idx, :2] = rng.uniform(-pose_spread, pose_spread,
+                                         size=(bad.size, 2))
+            dpose[idx, 2] = rng.uniform(-psi_spread, psi_spread,
+                                        size=bad.size)
+        else:
+            cand = x0[sl] + dpose[sl]
+            clr = _np_sat_clearance(cand[:, 0], cand[:, 1], cand[:, 2],
+                                    ego_g, layout_verts[li])
+            dpose[sl[clr < margin]] = 0.0
+
+    specs = dataclasses.replace(
+        specs, x0=torch.as_tensor(x0 + dpose, dtype=dtype))
+    dev = resolve_device(device)
+    return (map_tensors(lambda t: t.to(dev), specs),
+            map_tensors(lambda t: t.to(dev), layouts), group)
+
+
+def randomized_reverse_parking_specs(B, n_layouts=8, seed=0, N=80, Ts=0.3,
+                                     pose_spread=0.5, psi_spread=0.15,
+                                     vary_topology=False,
+                                     dtype=torch.float64, device="cuda"):
+    """Reverse-parking batch with randomized start poses and obstacles.
+
+    Per layout: slot half-width 1.25-1.6 m, slot centre +-0.8 m,
+    block-top height 4.7-5.3 m, upper-wall depth 10.8-12 m, the goal
+    moving with the slot.  With ``vary_topology`` the upper wall may be
+    absent, a parked-car box may stand on the right block top, and the
+    slot-entrance corners may be bevelled (5-vertex blocks); every
+    layout pads to (4 obstacles, 5 faces) with masked rows.  Each of the
+    ``n_layouts`` layouts serves a contiguous group of B / n_layouts
+    lanes (one lattice ``PlanField`` per layout); start poses are drawn
+    per lane.
+
+    Returns ``(specs, layouts, group_size)``: ``specs`` stacked [B],
+    ``layouts`` stacked [n_layouts] (their x0 are placeholders), and
+    group_size = B // n_layouts.
+    """
+    if B % n_layouts:
+        raise ValueError(f"B={B} must be a multiple of "
+                         f"n_layouts={n_layouts}")
+    rng = np.random.default_rng(seed)
+    mo, mf = (4, 5) if vary_topology else (None, None)
+    base = reverse_parking_spec(N=N, Ts=Ts, dtype=dtype, max_obs=mo,
+                                max_faces=mf, device="cpu")
+    layout_list, layout_verts = [], []
+    for _ in range(n_layouts):
+        sh = rng.uniform(1.25, 1.6)       # slot half-width
+        xc = rng.uniform(-0.8, 0.8)       # slot centre
+        yt = rng.uniform(4.7, 5.3)        # block-top height
+        yw = rng.uniform(10.8, 12.0)      # upper wall bottom edge
+        if vary_topology and rng.random() < 0.5:
+            bw, bh = rng.uniform(0.15, 0.45, size=2)
+            left = [(-20.0, yt), (xc - sh - bw, yt),
+                    (xc - sh, yt - bh), (xc - sh, -5.0), (-20.0, -5.0)]
+        else:
+            left = [(-20.0, yt), (xc - sh, yt), (xc - sh, -5.0),
+                    (-20.0, -5.0)]
+        if vary_topology and rng.random() < 0.5:
+            bw, bh = rng.uniform(0.15, 0.45, size=2)
+            right = [(xc + sh, yt - bh), (xc + sh + bw, yt),
+                     (20.0, yt), (20.0, -5.0), (xc + sh, -5.0)]
+        else:
+            right = [(xc + sh, yt), (20.0, yt), (20.0, -5.0),
+                     (xc + sh, -5.0)]
+        vlist = [left, right]
+        if not vary_topology or rng.random() < 0.75:
+            vlist.append([(-20.0, yw + 4.0), (20.0, yw + 4.0),
+                          (20.0, yw), (-20.0, yw)])
+        if vary_topology and rng.random() < 0.5:
+            # Parked-car box on the right block top, clear of the slot.
+            x0b = xc + sh + rng.uniform(3.5, 6.0)
+            wb, hb = rng.uniform(1.8, 2.4), rng.uniform(1.4, 2.0)
+            vlist.append([(x0b, yt + hb), (x0b + wb, yt + hb),
+                          (x0b + wb, yt), (x0b, yt)])
+        layout_verts.append(vlist)
+        obs = obstacles_from_vertices(vlist, max_obs=mo, max_faces=mf,
+                                      dtype=dtype, device="cpu")
+        # Park flush: the ego front (3.7 m ahead of the rear axle) at the
+        # block-top line.
+        xF = torch.tensor([xc, yt - 3.7, np.pi / 2.0, 0.0], dtype=dtype)
+        layout_list.append(dataclasses.replace(base, obstacles=obs, xF=xF))
+    return _grouped_batch(rng, layout_list, layout_verts, base, B,
+                          n_layouts, pose_spread, psi_spread, dtype, device)
+
+
+def randomized_parallel_parking_specs(B, n_layouts=8, seed=0, N=80, Ts=0.3,
+                                      pose_spread=0.4, psi_spread=0.1,
+                                      vary_topology=True,
+                                      dtype=torch.float64, device="cuda"):
+    """Parallel-parking batch with randomized start poses and obstacles.
+
+    Per layout: slot half-length 3.85-4.4 m, slot centre +-0.6 m, curb
+    top 2.3-2.7 m, block tops 4.8-5.2 m; with ``vary_topology`` the
+    slot-entrance corners may be bevelled and a parked-car box may stand
+    at the top of the street, padded to (4 obstacles, 5 faces).  The
+    goal parks centred in the drawn slot 0.2 m off the drawn curb, and
+    each layout's state box starts 0.1 m above its curb (``xy_lo`` =
+    [-12, curb + 0.1]).  Same return value and start-pose rejection as
+    :func:`randomized_reverse_parking_specs`.
+    """
+    if B % n_layouts:
+        raise ValueError(f"B={B} must be a multiple of "
+                         f"n_layouts={n_layouts}")
+    rng = np.random.default_rng(seed)
+    mo, mf = (4, 5) if vary_topology else (None, None)
+    base = parallel_parking_spec(N=N, Ts=Ts, dtype=dtype, max_obs=mo,
+                                 max_faces=mf, device="cpu")
+    layout_list, layout_verts = [], []
+    for _ in range(n_layouts):
+        gh = rng.uniform(3.85, 4.4)       # slot half-length
+        xs = rng.uniform(-0.6, 0.6)       # slot centre
+        yc = rng.uniform(2.3, 2.7)        # curb top
+        yb = rng.uniform(4.8, 5.2)        # block tops
+        xl, xr = xs - gh, xs + gh         # slot edges
+        if vary_topology and rng.random() < 0.5:
+            bw, bh = rng.uniform(0.15, 0.4, size=2)
+            left = [(-15.0, yb), (xl - bw, yb), (xl, yb - bh),
+                    (xl, 0.0), (-15.0, 0.0)]
+        else:
+            left = [(-15.0, yb), (xl, yb), (xl, 0.0), (-15.0, 0.0)]
+        if vary_topology and rng.random() < 0.5:
+            bw, bh = rng.uniform(0.15, 0.4, size=2)
+            right = [(xr, yb - bh), (xr + bw, yb), (15.0, yb),
+                     (15.0, 0.0), (xr, 0.0)]
+        else:
+            right = [(xr, yb), (15.0, yb), (15.0, 0.0), (xr, 0.0)]
+        vlist = [
+            left, right,
+            [(-15.0, yc), (15.0, yc), (15.0, 0.0), (-15.0, 0.0)],
+        ]
+        if vary_topology and rng.random() < 0.5:
+            # A car parked on the opposite side, at the top of the street.
+            x0b = rng.uniform(-2.0, 6.0)
+            wb = rng.uniform(4.0, 7.0)
+            y0b = rng.uniform(8.9, 9.3)
+            vlist.append([(x0b, 10.0), (x0b + wb, 10.0),
+                          (x0b + wb, y0b), (x0b, y0b)])
+        layout_verts.append(vlist)
+        obs = obstacles_from_vertices(vlist, max_obs=mo, max_faces=mf,
+                                      dtype=dtype, device="cpu")
+        # Centred in the slot (rear axle 1.35 m behind the car centre),
+        # 0.2 m above the drawn curb; the state box tracks the curb.
+        xF = torch.tensor([xs - 1.35, yc + 1.2, 0.0, 0.0], dtype=dtype)
+        layout_list.append(dataclasses.replace(
+            base, obstacles=obs, xF=xF,
+            xy_lo=torch.tensor([-12.0, yc + 0.1], dtype=dtype)))
+    return _grouped_batch(rng, layout_list, layout_verts, base, B,
+                          n_layouts, pose_spread, psi_spread, dtype, device)

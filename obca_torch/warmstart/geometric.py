@@ -91,3 +91,49 @@ def lattice_warm_start(spec, dtype=None, dual_eps=1e-2, cfg=None,
     U = torch.where(r, U_lat, U_rs)
     W = warm_start(spec, X=X, U=U, dtype=dtype, dual_eps=dual_eps)
     return W[0] if single else W
+
+
+def layout_fields(layouts, lcfg):
+    """One ``lattice.PlanField`` per layout of a stacked ``layouts``
+    batch, on the static grid of ``lcfg``."""
+    from obca_torch.warmstart import lattice as lattice_mod
+
+    return [lattice_mod.plan_field(spec_mod.take(layouts, g), lcfg)
+            for g in range(layouts.x0.shape[0])]
+
+
+def grouped_lattice_warm_start(specs, layouts, lcfg, dtype=None,
+                               dual_eps=1e-2, fields=None):
+    """Warm starts of a grouped randomized-obstacle batch.
+
+    ``specs`` [B] is ``n_layouts`` contiguous groups of B / n_layouts
+    lanes that share one obstacle layout; ``layouts`` [n_layouts] holds
+    one spec per layout (see ``spec.randomized_reverse_parking_specs``).
+    One ``PlanField`` per layout (it depends on obstacles, goal and
+    bounds, not on the start pose), then the lattice warm start of each
+    group's lanes with its field.  ``lcfg`` fixes the static grid (the
+    primitive cell offsets); each layout's own bounds place its cells,
+    occupancy and goal.  ``fields``: the layouts' fields, if the caller
+    computed them already (:func:`layout_fields`).
+    """
+    if fields is None:
+        fields = layout_fields(layouts, lcfg)
+    group = specs.x0.shape[0] // len(fields)
+    out = []
+    for g, field in enumerate(fields):
+        lanes = spec_mod.take(specs, slice(g * group, (g + 1) * group))
+        out.append(lattice_warm_start(lanes, dtype=dtype, dual_eps=dual_eps,
+                                      cfg=lcfg, field=field))
+    return torch.cat(out, dim=0)
+
+
+def rs_warm_start(spec, dtype=None, delta_frac=0.8, dual_eps=1e-2):
+    """Reeds-Shepp path + smooth velocity profile + geometric duals: the
+    warm start for obstacle-light instances, where the lattice planner
+    is not needed."""
+    from obca_torch.warmstart import velosmooth
+
+    spec, single = _batched(spec)
+    X, U = velosmooth.rs_time_sampled(spec, delta_frac=delta_frac)
+    W = warm_start(spec, X=X, U=U, dtype=dtype, dual_eps=dual_eps)
+    return W[0] if single else W

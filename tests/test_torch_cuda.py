@@ -146,12 +146,17 @@ def _interchange_system(nz, S, B, kind, seed=0):
 @pytest.mark.parametrize("nz,S,B,kind", [
     (11, 1, 3, "tiny_lead"), (11, 7, 1, "permuted"),
     (56, 2, 1, "tiny_lead"), (56, 9, 2, "permuted"),
+    (64, 5, 1, "permuted"), (64, 2, 2, "tiny_lead"),
+    (72, 9, 2, "permuted"), (72, 2, 1, "tiny_lead"),
+    (75, 3, 2, "permuted"),
     (bk.NZ_MAX, 5, 1, "permuted"), (bk.NZ_MAX, 2, 2, "tiny_lead")])
 def test_cuda_factor_fwd_se_with_interchanges(nz, S, B, kind, cuda):
     """factor_se and fwd_se within 1e-4 relative of their plain versions
     in float32 on blocks that need row interchanges (the implicit pivot
-    permutation), at nz = 11, 56 and the cap, S = 1, 2 and S that are
-    not multiples of fwd_se's ring of 4 stage buffers, and B = 1."""
+    permutation), at nz = 11, 56 and 64 (the instantiation for nz <= 64)
+    and 72, 75 (odd: the 4-byte route) and the cap 128 (the one for
+    64 < nz <= 128), S = 1, 2 and S that are not multiples of fwd_se's
+    ring of 4 stage buffers, and B = 1."""
     K, ev, reg, r, pat = _interchange_system(nz, S, B, kind)
     K, ev, reg, r = (_f32(a, cuda) for a in (K, ev, reg, r))
     before = dict(bk.launches)
@@ -169,10 +174,12 @@ def test_cuda_factor_fwd_se_with_interchanges(nz, S, B, kind, cuda):
 
 @pytest.mark.gpu
 def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
-    """An nz above NZ_MAX raises on the card in each structured-coupling
-    kernel (factor_se, fwd_se, bwd_matvec_se, bwd_se) and in the dense
-    factor_dense, fwd_dense and bwd_dense: no fallback, no launch."""
+    """An nz above NZ_MAX (129) raises on the card in each
+    structured-coupling kernel (factor_se, fwd_se, bwd_matvec_se, bwd_se)
+    and in the dense factor_dense, fwd_dense and bwd_dense: no fallback,
+    no launch."""
     nz = bk.NZ_MAX + 1
+    assert nz == 129
     pat = bk.CouplingPattern.of([0], [1])
     K = torch.zeros((1, 2, nz, nz), device=cuda)
     ev = torch.zeros((1, 1, 1), device=cuda)
@@ -202,6 +209,9 @@ def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
     (11, 1, 3, "tiny_lead", False), (11, 7, 1, "permuted", False),
     (56, 1, 1, "permuted", False), (56, 2, 1, "tiny_lead", False),
     (56, 9, 3, "permuted", False), (56, 7, 3, "tiny_lead", True),
+    (64, 5, 1, "permuted", False), (64, 2, 3, "tiny_lead", False),
+    (72, 9, 3, "permuted", False), (72, 7, 3, "tiny_lead", True),
+    (75, 3, 2, "permuted", False),
     (bk.NZ_MAX, 5, 1, "permuted", False),
     (bk.NZ_MAX, 2, 3, "tiny_lead", False)])
 def test_cuda_factor_fwd_dense_with_interchanges(nz, S, B, kind, r_offset,
@@ -209,7 +219,8 @@ def test_cuda_factor_fwd_dense_with_interchanges(nz, S, B, kind, r_offset,
     """factor_dense (Sinv and W), fwd_dense and then bwd_dense within
     1e-4 relative of their plain versions in float32, on a dense coupling
     block (0.3 N(0, 1) / sqrt(nz)) and stage blocks that need row
-    interchanges: nz = 11 (the 4-byte route), 56 and the cap; S = 1, 2
+    interchanges: nz = 11 (the 4-byte route), 56, 64, then 72, 75 (the
+    4-byte route) and the cap 128 of the wide instantiations; S = 1, 2
     and S that are not multiples of the rings of 4 (fwd_dense) and 8
     (bwd_dense) stage buffers; B = 1 and 3; r, and y for bwd_dense, at a
     4-byte offset, which takes the 4-byte route.  One launch counted per
@@ -266,12 +277,16 @@ def _bwd_system(nz, S, B, kind, seed=0):
     (11, 1, 3, "window", False), (11, 17, 1, "window", False),
     (56, 1, 1, "window", False), (56, 2, 3, "window", False),
     (56, 9, 1, "window", False), (56, 17, 3, "window", False),
-    (56, 7, 3, "window", True), (bk.NZ_MAX, 7, 1, "window", False),
-    (bk.NZ_MAX, 9, 3, "wide", False)])
+    (56, 7, 3, "window", True), (64, 7, 1, "window", False),
+    (64, 9, 3, "wide", False), (72, 9, 3, "window", False),
+    (72, 17, 1, "wide", False), (72, 7, 3, "window", True),
+    (bk.NZ_MAX, 7, 1, "window", False), (bk.NZ_MAX, 9, 3, "wide", False)])
 def test_cuda_bwd_kernels_match_plain(nz, S, B, kind, y_offset, cuda):
     """bwd_matvec_se (p and Ap) and bwd_se within 1e-4 relative of their
     plain versions in float32 (the sums run in another order): nz = 11
-    (the scalar route), 56 and the cap; S = 1 (no Wc stage), 2 and S
+    (the scalar route), 56, 64, and 72 and the cap 128 of the wide
+    instantiations ("wide" at 72 and 128 takes the ring of 3, at 128
+    with K_{s+1} read from device memory); S = 1 (no Wc stage), 2 and S
     whose step counts are not multiples of the rings of 8 (bwd_matvec_se)
     and 16 (bwd_se) stage buffers; B = 1 and 3; y at a 4-byte offset
     (contiguous, not 16-byte aligned), which takes the scalar route.  One

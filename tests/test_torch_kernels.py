@@ -116,6 +116,80 @@ def test_factor_fwd_bwd_plain_match_pallas(system):
                                atol=1e-12)
 
 
+def test_plain_match_pallas_at_nz72():
+    """At nz = 72, the stage size of the topology-varied randomized
+    families (nw = 43, nc = 29: 4 obstacles of 5 faces), with their
+    OBCA coupling pattern: the plain versions of every solver kernel
+    (factor_se, fwd_se, bwd_matvec_se, bwd_se, and the dense factor and
+    solve) against the Pallas kernels in interpret mode, B = 2, S = 3,
+    rtol 1e-9, atol 1e-12 in float64; each substitution fed the JAX
+    factor's outputs."""
+    from obca_torch import nlp as tnlp
+    from obca_torch import reverse_parking_spec
+    from obca_torch.solver.kernels import blocktri_dense as tbd
+
+    L = tnlp.layout_of(reverse_parking_spec(N=2, max_obs=4, max_faces=5,
+                                            device="cpu"))
+    nw, nz, s, b = L.nw, L.nz, 3, 2
+    assert (nw, nz) == (43, 72)
+    rows, cols = tnlp.coupling_structure(L)
+    pat = tbk.CouplingPattern.of(rows, cols)
+    C = len(pat.ucols)
+    rng = np.random.default_rng(5)
+    M = rng.standard_normal((b, s, nw, nw))
+    A = M @ np.swapaxes(M, -1, -2) / nw + 2.0 * np.eye(nw)
+    Q = rng.standard_normal((b, s, nz - nw, nz - nw))
+    D = -(Q @ np.swapaxes(Q, -1, -2) / (nz - nw) + np.eye(nz - nw))
+    J = rng.standard_normal((b, s, nz - nw, nw))
+    K = np.concatenate([np.concatenate([A, np.swapaxes(J, -1, -2)], -1),
+                        np.concatenate([J, D], -1)], -2)
+    ev = 0.3 * rng.standard_normal((b, s - 1, len(rows)))
+    reg = np.tile(np.concatenate([np.full(nw, 1e-4),
+                                  np.full(nz - nw, -1e-4)]), (b, 1))
+    r = rng.standard_normal((b, s, nz))
+    tol = dict(rtol=1e-9, atol=1e-12)
+
+    Sinv_j, Wc_j, ucols = jbk.factor_batched_se(
+        _lanes_minor(K), _lanes_minor(ev), _lanes_minor(reg), rows, cols,
+        nw, interpret=True)
+    assert list(ucols) == list(pat.ucols)
+    y_j = _batch_major(jbk.fwd_se(Sinv_j, _lanes_minor(ev),
+                                  _lanes_minor(r), rows, cols,
+                                  interpret=True))
+    x_j = _batch_major(jbk.solve_batched_se(
+        Sinv_j, Wc_j, _lanes_minor(ev), _lanes_minor(r), rows, cols, ucols,
+        interpret=True))
+    p_j, Ap_j = jbk.bwd_matvec_se(
+        Wc_j, _lanes_minor(y_j), _lanes_minor(K), _lanes_minor(ev), rows,
+        cols, list(pat.ucols), interpret=True)
+    Sinv_j, Wc_j = _batch_major(Sinv_j), _batch_major(Wc_j)[..., :C]
+
+    Sinv_t, Wc_t = tbk.factor_se(_t(K), _t(ev), _t(reg), pat)
+    np.testing.assert_allclose(Sinv_t.numpy(), Sinv_j, **tol)
+    np.testing.assert_allclose(Wc_t.numpy(), Wc_j, **tol)
+    y_t = tbk.fwd_se(_t(Sinv_j), _t(ev), _t(r), pat)
+    np.testing.assert_allclose(y_t.numpy(), y_j, **tol)
+    p_t, Ap_t = tbk.bwd_matvec_se(_t(Wc_j), _t(y_j), _t(K), _t(ev), pat)
+    np.testing.assert_allclose(p_t.numpy(), _batch_major(p_j), **tol)
+    np.testing.assert_allclose(Ap_t.numpy(), _batch_major(Ap_j), **tol)
+    np.testing.assert_allclose(tbk.bwd_se(_t(Wc_j), _t(y_j), pat).numpy(),
+                               x_j, **tol)
+
+    E = 0.3 * rng.standard_normal((b, s - 1, nz, nz)) / np.sqrt(nz)
+    Kr = K + np.einsum("ij,bj->bij", np.eye(nz), reg)[:, None]
+    Sd_j, W_j = jbk.factor_batched(_lanes_minor(Kr), _lanes_minor(E), nw,
+                                   interpret=True)
+    xd_j = _batch_major(jbk.solve_batched(Sd_j, W_j, _lanes_minor(E),
+                                          _lanes_minor(r), interpret=True))
+    Sd_j, W_j = _batch_major(Sd_j), _batch_major(W_j)
+    Sd_t, W_t = tbd.factor_dense(_t(Kr), _t(E))
+    np.testing.assert_allclose(Sd_t.numpy(), Sd_j, **tol)
+    np.testing.assert_allclose(W_t.numpy(), W_j, **tol)
+    yd_t = tbd.fwd_dense(_t(Sd_j), _t(E), _t(r))
+    np.testing.assert_allclose(tbd.bwd_dense(_t(W_j), yd_t).numpy(), xd_j,
+                               **tol)
+
+
 def _list_pattern(kind):
     """(rows, cols, nz): the OBCA coupling pattern of the reverse-parking
     layout (rows with several entries and rows with none), or a random
