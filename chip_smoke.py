@@ -238,6 +238,15 @@ def err(got, want):
         bool(torch.isfinite(got).all())
 
 
+def device_text(d):
+    """The device time of one kernel's timing, as its lines print it."""
+    if d["device_ms"] is None:
+        return "device time not measured (the profiler recorded no CUDA " \
+               "kernels)"
+    return (f"device {d['device_ms']:.4f} ms ({d['device_launches']:g} "
+            f"launches a call)")
+
+
 def add_times(out, calls, device):
     """Median CUDA-event times of each kernel and its plain version, and
     the kernel's device time per call."""
@@ -863,9 +872,8 @@ def main():
     bounds = {name: kb.bound_ms(*c) for name, c in costs.items()}
     check_errors("synthetic", synth)
     for name, d in synth.items():
-        print(f"time {name}: kernel {d['ms']:.4f} ms, device "
-              f"{d['device_ms']:.4f} ms ({d['device_launches']:g} "
-              f"launches a call), plain {d['plain_ms']:.4f} ms, bound "
+        print(f"time {name}: kernel {d['ms']:.4f} ms, {device_text(d)}, "
+              f"plain {d['plain_ms']:.4f} ms, bound "
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]})")
     launches = {name: 0 for name in KERNELS}
     clock.lap("3")
@@ -881,9 +889,8 @@ def main():
     wide_bounds = {name: kb.bound_ms(*c) for name, c in kb.kernel_costs(
         B_MAIN, S, nz_w, nnz_w, C_w).items()}
     for name, d in wide.items():
-        print(f"time nz={nz_w} {name}: kernel {d['ms']:.4f} ms, device "
-              f"{d['device_ms']:.4f} ms ({d['device_launches']:g} "
-              f"launches a call), plain {d['plain_ms']:.4f} ms, bound "
+        print(f"time nz={nz_w} {name}: kernel {d['ms']:.4f} ms, "
+              f"{device_text(d)}, plain {d['plain_ms']:.4f} ms, bound "
               f"{wide_bounds[name][0]:.4f} ms ({wide_bounds[name][1]})")
     clock.lap("3w")
 
@@ -892,8 +899,8 @@ def main():
     probe_res = compare_probes(device, (B_MAIN, S, nz, nz))
     check_probes(probe_res)
     for name, d in probe_res.items():
-        print(f"time {name}: kernel {d['ms']:.4f} ms, device "
-              f"{d['device_ms']:.4f} ms, plain {d['plain_ms']:.4f} ms, "
+        print(f"time {name}: kernel {d['ms']:.4f} ms, {device_text(d)}, "
+              f"plain {d['plain_ms']:.4f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})"
               + (f", x + 1 {d['library_ms']:.4f} ms"
                  if "library_ms" in d else ""))
@@ -909,9 +916,10 @@ def main():
     for name, d in synth.items():
         t = kb.measured_bound_ms(*costs[name], bench["cuda_stream_gbps"],
                                  bench["fma_probe_tflops"])
+        share = ("its device time not measured" if d["device_ms"] is None
+                 else f"{100 * t / d['device_ms']:.1f}% of its device time")
         print(f"measured_bound {name}: {t:.4f} ms at the measured stream "
-              f"and FMA rates, {100 * t / d['device_ms']:.1f}% of its "
-              f"device time")
+              f"and FMA rates, {share}")
     clock.lap("3b")
 
     # 4. The f32 main path.

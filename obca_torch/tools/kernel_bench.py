@@ -14,7 +14,9 @@ same steps through the plain versions on the CPU and reports no times
    (``fwd_se`` then ``bwd_se``), captured in one CUDA graph and replayed
    between two CUDA events, per call (``factor_ms``, ``solve_ms``);
 3. device-trace timing: the same calls' own device time per call under
-   torch.profiler (:func:`device_ms`; ``*_trace_ms``);
+   torch.profiler (:func:`device_ms`; ``*_trace_ms``; where the profiler
+   records no kernel, the chained time stands in, and
+   ``untraced_timings`` counts those timings);
 4. stream rate over a [B, S, nz, nz] float32 array (130.1 MB at the
    default shape, past the 50 MB L2), from the device time of ``NS``
    passes each: PyTorch's ``x + 1`` (``torch_stream_gbps``) and the
@@ -112,25 +114,34 @@ def measured_bound_ms(nbytes, ops, stream_gbps, fma_tflops):
     return max(nbytes / (stream_gbps * 1e6), ops / (fma_tflops * 1e9))
 
 
-def device_ms(fn, runs=25):
+def device_ms(fn, runs=25, tries=3):
     """The device's own time per call of ``fn``: the self device time of
     the CUDA kernels that ``runs`` calls launch under torch.profiler,
     over ``runs``, with those launches per call.  Unlike the CUDA-event
-    time, it leaves out the host's launch gap."""
+    time, it leaves out the host's launch gap.  A trace that records no
+    CUDA kernel (one H100 run of ``chip_smoke.py`` got such a trace for
+    one kernel among many that were traced), or a number of kernels that
+    is not a whole number a call, lost records; it is taken again, up
+    to ``tries`` times, and if none is whole the device time was not
+    measured and the result is (None, None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in kern)
-    return total_us / 1e3 / runs, sum(e.count for e in kern) / runs
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in kern)
+        count = sum(e.count for e in kern)
+        if total_us > 0 and count % runs == 0:
+            return total_us / 1e3 / runs, count / runs
+    return None, None
 
 
 def card():
@@ -233,10 +244,19 @@ def measure(B=128, N=80, n_chain=50, device="cuda"):
     def solve():
         return bk.solve_se(Sinv, Wc, ev, r, pat)
 
+    untraced = []
+
     def trace_ms(fn, runs):
         # The device's own time per call; on the CPU there is no device
         # trace, the host time stands in for it and is not reported.
-        return device_ms(fn, runs)[0] if cuda else chain_ms(fn, runs, device)
+        # Where the profiler records no kernel, the CUDA-graph time (on
+        # the device's clock, with no host gap) stands in for it, and
+        # ``untraced`` counts such timings.
+        t = device_ms(fn, runs)[0] if cuda else None
+        if t is None:
+            untraced.append(fn)
+            return chain_ms(fn, runs, device)
+        return t
 
     times = {name: (chain_ms(fn, n_chain, device), trace_ms(fn, n_chain))
              for name, fn in (("factor", factor), ("solve", solve))}
@@ -271,6 +291,7 @@ def measure(B=128, N=80, n_chain=50, device="cuda"):
                        fma_tflops)
         out.update(m)
         measured.update(t)
+    measured["untraced_timings"] = len(untraced)
     if not cuda:
         measured = dict.fromkeys(measured)
     out.update(measured)

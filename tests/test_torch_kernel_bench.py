@@ -215,3 +215,19 @@ def test_synthetic_system_matches_jax_tool():
             (rt, np.moveaxis(r[:, :nz, :B], -1, 0))):
         assert got.dtype == torch.float32 and got.is_contiguous()
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_device_ms_without_kernels_is_not_measured(monkeypatch):
+    """A trace that records no CUDA kernel is taken again, ``tries``
+    times in all after one warm-up call, and then reported as not
+    measured, (None, None), rather than as 0 ms.  Here no call launches
+    a CUDA kernel, so every trace is empty."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return torch.ones(3) + 1
+
+    assert kb.device_ms(fn, runs=4, tries=2) == (None, None)
+    assert len(calls) == 1 + 2 * 4
