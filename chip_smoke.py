@@ -81,9 +81,31 @@ non-zero, and no result line is printed):
 8f. free time: ``reverse_parking_freetime_N80`` through
    ``ipm.solve_free_time`` under ``f32_solver_config(max_iter=250)``
    (gap < 1e-3; |tau - tau_gold| printed);
+9. the MPC fleet, ``bench/run_mpc.py``'s defaults composed from port
+   calls: 128 starts of ``reverse_parking_spec(N=80, Ts=0.3)`` in
+   float32 shifted by ``uniform(-0.3, 0.3)`` draws, one ``plan_field``,
+   per-lane ``lattice_warm_start``, ``mpc.run_fleet`` for 30 periods
+   under ``f32_solver_config(max_iter=70)`` (re-solves: mu 1e-4, cap 60,
+   tol 1e-3), counted (``factor_se``, ``fwd_se``, ``bwd_matvec_se``):
+   initial plans 128/128, step convergence >= 0.90, every closed-loop
+   state finite and clear of its obstacles by d_min - 1e-3
+   (``geometry.ego_clearance_exact``, the exact polygon distance where
+   that SAT gap is below), every rollout nearer its goal at the end;
+9s. rollout 0 alone (B = 1) for 30 and for 10 periods: the per-period
+   time a single vehicle sees and its steady slope (no gate); then its
+   initial plan under torch.profiler;
+10. the navigation family: 128 lanes of ``nav.nav_spec()`` (N=60, nz =
+   44) on the grazing layout of ``tests/test_nav.py``, start y shifted
+   by ``uniform(-0.4, 0.4)`` draws, ``ipm.solve_batch_rescued(...,
+   prob=nav)`` under ``mixed_solver_config(max_iter=150)``, counted
+   (``factor_se``, ``fwd_se``, ``bwd_se``): every converged lane within
+   1e-5 of its boundary conditions and every stage point at least d_min
+   - 1e-4 outside every obstacle, at least the JAX package's converged
+   count less 3, and lane 0's controls within 1e-3 of the port's float64
+   solve of the same spec on the CPU;
 6. one ``kernels`` JSON line (launches summed over the counted runs of
-   phases 3b, 4, 6d, 4m, 7 and 8p; each solver kernel's nz = 72 numbers
-   from phase 3w beside its own), then the device line, last.
+   phases 3b, 4, 6d, 4m, 7, 8p, 9, 9s and 10; each solver kernel's nz =
+   72 numbers from phase 3w beside its own), then the device line, last.
 
 Each phase prints its seconds.
 
@@ -113,6 +135,22 @@ LANE_TOL = 1e-3    # clearance below d_min and distance to xF allowed
 PROBE_ULPS = 2
 PARITY_TOL = 1e-3
 DENSE_TOL = 1e-3
+# Phase 9: bench/run_mpc.py's defaults (fleet, f32, N=80, Ts=0.3).
+B_MPC, MPC_SPREAD, ITERS_MPC = 128, 0.3, 70
+MPC_STEPS, MPC_STEPS_SHORT = 30, 10
+RESOLVE_MU, RESOLVE_ITERS, RESOLVE_TOL = 1e-4, 60, 1e-3
+MPC_MIN_STEP_CONV = 0.90
+# Phase 10: the nav batch on tests/test_nav.py's grazing layout.
+NAV_VERTS = [
+    [(-4.0, 0.5), (-2.0, 0.5), (-2.0, 5.0), (-4.0, 5.0)],
+    [(2.0, -5.0), (4.0, -5.0), (4.0, -0.5), (2.0, -0.5)],
+]
+B_NAV, NAV_SPREAD, ITERS_NAV = 128, 0.4, 150
+NAV_BC_TOL, NAV_CLEAR_TOL, NAV_PARITY_TOL = 1e-5, 1e-4, 1e-3
+# The JAX package's converged count on the same 128 lanes (float64 on a
+# CPU: PYTHONPATH=. python tests/test_torch_nav.py); the port may
+# converge NAV_COUNT_SLACK fewer.
+NAV_JAX_CONVERGED, NAV_COUNT_SLACK = 128, 3
 _PALLAS = "obca_tpu/solver/pallas/blocktri_kernel.py"
 # kernel -> (the TPU kernel it replaces, its source in the port)
 KERNELS = {
@@ -563,12 +601,17 @@ def measure_main_path(bk, base, specs, cfg):
     return main, cap
 
 
-def print_profile(label, run, wall_median):
+def print_profile(label, run, wall_median=None):
+    """Profile ``run`` and print its device busy share of
+    ``wall_median`` (the unprofiled wall of the same work; None: of the
+    profiled run's own wall), the top kernels and the port's kernels."""
     p_wall, p_busy, p_top, p_ours = device_profile(run)
     if p_busy > 0:
+        ref, what = ((wall_median, "unprofiled median wall")
+                     if wall_median else (p_wall, "profiled wall"))
         print(f"profiled {label}: wall {p_wall:.3f} s, device busy "
-              f"{p_busy:.3f} s ({100 * p_busy / wall_median:.1f}% of the "
-              f"unprofiled median wall {wall_median:.3f} s)")
+              f"{p_busy:.3f} s ({100 * p_busy / ref:.1f}% of the "
+              f"{what} {ref:.3f} s)")
         for name, ms, calls in p_top:
             print(f"  device {ms:9.2f} ms  {calls:6d} calls  {name}")
         for name, (ms, calls) in p_ours.items():
@@ -720,26 +763,37 @@ def lane_checks(specs, res):
     worst_clear, worst_goal = float("inf"), 0.0
     for i in np.flatnonzero(ok):
         sp = tspec.cast_floats(tspec.take(specs, int(i)), X.dtype)
-        d_min = float(sp.d_min)
         x = X[i].to(sp.x0.device)
         gap = geometry.ego_clearance_flat(x[:, 0], x[:, 1], x[:, 2],
                                           sp.ego_g, sp.obstacles)
-        gap = gap.cpu().numpy()
-        ob = tspec.map_tensors(lambda t: t.cpu().numpy(), sp.obstacles)
-        ego = sp.ego_g.cpu().numpy()
-        xs = x.cpu().numpy()
-        for k in np.flatnonzero(gap < d_min - LANE_TOL):
-            gap[k] = min(
-                geometry.ego_obstacle_distance(xs[k, :3], ego, ob.A[m],
-                                               ob.b[m], ob.face_mask[m])
-                for m in range(ob.num_obs) if ob.obs_mask[m] > 0)
-        margin = float(gap.min()) - d_min
+        margin = clearance_margin(sp, x, gap)
         goal = float((x[-1] - sp.xF).abs().max())
         worst_clear = min(worst_clear, margin)
         worst_goal = max(worst_goal, goal)
         n_clear += margin < -LANE_TOL
         n_goal += goal > LANE_TOL
     return int(ok.sum()), n_clear, n_goal, worst_clear, worst_goal
+
+
+def clearance_margin(sp, x, gap):
+    """The smallest clearance of poses x [K, 4] of one lane minus its
+    d_min, from their SAT gaps [K] (which never exceed the distance),
+    each gap below d_min - LANE_TOL replaced by the exact polygon
+    distance of that pose to its nearest real obstacle."""
+    from obca_torch import geometry
+    from obca_torch import spec as tspec
+
+    d_min = float(sp.d_min)
+    gap = gap.cpu().numpy()
+    ob = tspec.map_tensors(lambda t: t.cpu().numpy(), sp.obstacles)
+    ego = sp.ego_g.cpu().numpy()
+    xs = x.cpu().numpy()
+    for k in np.flatnonzero(gap < d_min - LANE_TOL):
+        gap[k] = min(
+            geometry.ego_obstacle_distance(xs[k, :3], ego, ob.A[m],
+                                           ob.b[m], ob.face_mask[m])
+            for m in range(ob.num_obs) if ob.obs_mask[m] > 0)
+    return float(gap.min()) - d_min
 
 
 def summarize(specs, res, secs, walls=None):
@@ -800,6 +854,234 @@ def check_random_family(label, out, min_converged):
                            f"goal")
 
 
+def mpc_fleet_batch(device, B=B_MPC, N=N_MAIN, spread=MPC_SPREAD, dtype=None,
+                    seed=0):
+    """``bench/run_mpc.py``'s fleet: B starts of
+    ``reverse_parking_spec(N, Ts=24/N)`` in ``dtype`` (default float32),
+    each start's x, y shifted by float32 draws of
+    ``np.random.default_rng(seed).uniform(-spread, spread, (B, 2))``
+    (``bench/_common.py``'s ``scenario_batch``)."""
+    import torch
+    from obca_torch import reverse_parking_spec
+    from obca_torch import spec as tspec
+
+    dtype = dtype or torch.float32
+    base = reverse_parking_spec(N=N, Ts=24.0 / N, dtype=dtype, device=device)
+    x0 = np.tile(base.x0.cpu().numpy(), (B, 1))
+    x0[:, :2] += np.random.default_rng(seed).uniform(
+        -spread, spread, size=(B, 2)).astype(x0.dtype)
+    specs = dataclasses.replace(tspec.stack([base] * B),
+                                x0=torch.as_tensor(x0, device=device))
+    return base, specs
+
+
+def run_mpc_fleet(base, specs, cfg, steps):
+    """One plan field for the fleet, a per-lane lattice warm start, then
+    ``mpc.run_fleet`` (rescued initial plans, then ``steps`` control
+    periods; ``bench/run_mpc.py``'s re-solve knobs).  Returns the result
+    and the wall seconds of the whole pipeline."""
+    from obca_torch import mpc
+    from obca_torch.warmstart import geometric, lattice
+
+    t0 = time.perf_counter()
+    lcfg = lattice.LatticeConfig.for_spec(base)
+    field = lattice.plan_field(base, lcfg)
+    W0 = geometric.lattice_warm_start(specs, dtype=cfg.dtype, cfg=lcfg,
+                                      field=field)
+    res = mpc.run_fleet(specs, cfg, steps, W0, resolve_mu=RESOLVE_MU,
+                        resolve_max_iter=RESOLVE_ITERS,
+                        resolve_tol=RESOLVE_TOL)
+    _sync(base.x0.device)
+    return res, time.perf_counter() - t0
+
+
+def summarize_mpc(specs, res, wall):
+    """``bench/run_mpc.py``'s fleet numbers, the periods whose batched
+    re-solve reached the cap (its slowest lane ran RESOLVE_ITERS
+    iterations), the failed re-solves of each period, and the
+    closed-loop checks: every state finite, each
+    rollout's worst clearance (``geometry.ego_clearance_exact`` against
+    its own obstacles, see :func:`clearance_margin`) and whether it ended
+    nearer its goal than it started."""
+    import torch
+    from obca_torch import geometry
+    from obca_torch import spec as tspec
+
+    B, steps = res.status.shape
+    status0 = res.status0.cpu().numpy()
+    status = res.status.cpu().numpy()
+    iters = res.iters.cpu().numpy()
+    states = res.states.double()
+    margins = []
+    for i in range(B):
+        sp = tspec.cast_floats(tspec.take(specs, i), torch.float64)
+        x = states[i].to(sp.x0.device)
+        gap = geometry.ego_clearance_exact(x, sp.ego_g, sp.obstacles)
+        margins.append(clearance_margin(sp, x, gap.amin(-1)))
+    goal = specs.xF[:, :2].double()
+    d_start = (states[:, 0, :2] - goal).norm(dim=-1)
+    d_end = (states[:, -1, :2] - goal).norm(dim=-1)
+    return {
+        "B": B, "N": specs.N, "steps": steps,
+        "dtype": str(specs.x0.dtype).replace("torch.", ""),
+        "wall_s": wall, "ms_per_mpc_step_fleet": wall / steps * 1e3,
+        "achieved_hz_fleet": steps / wall,
+        "solves_per_s": B * steps / wall,
+        "initial_plan_convergence_rate": float((status0 == 0).mean()),
+        "step_convergence_rate": float((status == 0).mean()),
+        "resolve_iters_p50": float(np.median(iters)),
+        "resolve_iters_max": int(iters.max()),
+        "periods_at_cap": int((iters.max(axis=0) >= RESOLVE_ITERS).sum()),
+        "failed_per_period": (status != 0).sum(axis=0).tolist(),
+        "states_finite": bool(torch.isfinite(states).all()),
+        "worst_clearance_margin": min(margins),
+        "rollouts_too_close": int(sum(m < -LANE_TOL for m in margins)),
+        "rollouts_not_nearer_goal": int((d_end >= d_start).sum()),
+    }
+
+
+def check_mpc(out):
+    """Phase 9's gates."""
+    if out["initial_plan_convergence_rate"] < 1.0:
+        raise RuntimeError(f"mpc: initial plans converged at rate "
+                           f"{out['initial_plan_convergence_rate']}, not 1")
+    if not out["step_convergence_rate"] >= MPC_MIN_STEP_CONV:
+        raise RuntimeError(f"mpc: step convergence "
+                           f"{out['step_convergence_rate']} < "
+                           f"{MPC_MIN_STEP_CONV}")
+    if not out["states_finite"] or out["rollouts_too_close"] \
+            or out["rollouts_not_nearer_goal"]:
+        raise RuntimeError(f"mpc: closed-loop checks failed: {out}")
+
+
+def measure_mpc_single(bk, base, specs, cfg, steps=MPC_STEPS,
+                       steps_short=MPC_STEPS_SHORT):
+    """Phase 9s: rollout 0 alone (B = 1) through ``run_mpc_fleet``: a
+    2-period warm-up, the counted run of ``steps`` periods, then one of
+    ``steps_short``; the steady per-period time is the slope between the
+    two walls (``bench/run_mpc.py``'s method)."""
+    from obca_torch import spec as tspec
+
+    one = tspec.take(specs, slice(0, 1))
+    run_mpc_fleet(base, one, cfg, 2)
+    bk.reset_launches()
+    res, wall = run_mpc_fleet(base, one, cfg, steps)
+    launches = dict(bk.launches)
+    _, wall_short = run_mpc_fleet(base, one, cfg, steps_short)
+    steady = (wall - wall_short) / (steps - steps_short)
+    return {
+        "steps": steps, "wall_s": wall, "steps_short": steps_short,
+        "wall_short_s": wall_short,
+        "ms_per_mpc_step_single": wall / steps * 1e3,
+        "achieved_hz_single": steps / wall,
+        "ms_per_mpc_step_single_steady": steady * 1e3,
+        "achieved_hz_single_steady": 1.0 / steady,
+        "status0": int(res.status0[0]),
+        "step_convergence_rate_single":
+            float((res.status == 0).float().mean()),
+        "resolve_iters_p50": float(res.iters.float().median()),
+        "resolve_iters_max": int(res.iters.max()),
+        "launches": launches,
+    }
+
+
+def nav_batch(device, B=B_NAV, N=60, spread=NAV_SPREAD, seed=0):
+    """Phase 10's batch: B lanes of ``nav.nav_spec()`` (N=60, Ts=0.25,
+    4 obstacles of 4 faces: nz = 44) in float64 on the grazing layout of
+    ``tests/test_nav.py``, lane b's start y shifted by
+    ``np.random.default_rng(seed).uniform(-spread, spread, B)[b]``."""
+    import torch
+    from obca_torch import nav
+    from obca_torch import spec as tspec
+
+    base = nav.nav_spec(N=N, vertex_lists=NAV_VERTS, device=device)
+    x0 = np.tile(base.x0.cpu().numpy(), (B, 1))
+    x0[:, 1] += np.random.default_rng(seed).uniform(-spread, spread, B)
+    specs = dataclasses.replace(tspec.stack([base] * B),
+                                x0=torch.as_tensor(x0, device=device))
+    return base, specs
+
+
+def summarize_nav(specs, res, wall):
+    """Converged count and the checks of each converged lane: its
+    boundary conditions (max |x_0 - x0|, |x_N - xF|) and the geometric
+    audit of ``test_nav_end_to_end_collision_free`` (every stage point's
+    largest face value max_v(A_m p - b_m) over every real obstacle,
+    minus d_min)."""
+    import torch
+    from obca_torch.solver import ipm
+
+    ok = res.status == ipm.STATUS_CONVERGED
+    X = res.X.double()
+    bc = torch.maximum((X[:, 0] - specs.x0).abs().amax(-1),
+                       (X[:, -1] - specs.xF).abs().amax(-1))
+    ob = specs.obstacles
+    face = (torch.einsum("bmvd,bkd->bkmv", ob.A, X[..., :2])
+            - ob.b[:, None])
+    face = torch.where(ob.face_mask[:, None] > 0, face,
+                       torch.full_like(face, -float("inf")))
+    clear = torch.where(ob.obs_mask[:, None] > 0, face.amax(-1),
+                        torch.full_like(face[..., 0], float("inf")))
+    margin = clear.amin(dim=(1, 2)) - specs.d_min
+    status = res.status.cpu().numpy()
+    iters = res.iters.cpu().numpy()
+    n_conv = int(ok.sum())
+    return {
+        "B": int(specs.x0.shape[0]), "N": specs.N, "converged": n_conv,
+        "status_counts": {int(k): int(v) for k, v in
+                          zip(*np.unique(status, return_counts=True))},
+        "iters_median": float(np.median(iters)),
+        "iters_max": int(iters.max()), "wall_s": wall,
+        "converged_solves_per_s": n_conv / wall,
+        "worst_bc_err": float(bc[ok].max()) if n_conv else None,
+        "worst_clearance_margin": (float(margin[ok].min()) if n_conv
+                                   else None),
+        "lanes_bc_off": int((bc[ok] > NAV_BC_TOL).sum()),
+        "lanes_too_close": int((margin[ok] < -NAV_CLEAR_TOL).sum()),
+    }
+
+
+def require_route(label, launches, used, unused):
+    """Raise unless ``factor_se``, ``fwd_se`` and ``used`` launched and
+    ``unused`` did not (the f32 route runs ``bwd_matvec_se``, the mixed
+    route ``bwd_se``)."""
+    if min(launches["factor_se"], launches["fwd_se"], launches[used]) <= 0 \
+            or launches[unused] != 0:
+        raise RuntimeError(f"{label}: the expected route did not run: "
+                           f"launches {launches}")
+
+
+def check_nav(out, status0):
+    """Phase 10's gates."""
+    from obca_torch.solver import ipm
+
+    if out["lanes_bc_off"] or out["lanes_too_close"]:
+        raise RuntimeError(f"nav: converged lanes fail their checks: {out}")
+    least = NAV_JAX_CONVERGED - NAV_COUNT_SLACK
+    if out["converged"] < least:
+        raise RuntimeError(f"nav: {out['converged']} lanes converged, "
+                           f"fewer than {least}")
+    if status0 != ipm.STATUS_CONVERGED or \
+            not out["lane0_cpu_gap"] <= NAV_PARITY_TOL:
+        raise RuntimeError(f"nav: lane 0 (status {status0}) is "
+                           f"{out['lane0_cpu_gap']:.3e} from its float64 "
+                           f"CPU solve")
+
+
+def nav_cpu_gap(specs, res):
+    """Lane 0's controls against the port's float64 solve of the same
+    spec on the CPU (``nav.solve`` under ``SolverConfig(max_iter=
+    ITERS_NAV)``): (max |U - U_cpu|, the CPU solve's status and
+    iterations)."""
+    from obca_torch import SolverConfig, nav
+    from obca_torch import spec as tspec
+
+    spec0 = tspec.map_tensors(lambda t: t.cpu(), tspec.take(specs, 0))
+    ref = nav.solve(spec0, SolverConfig(max_iter=ITERS_NAV))
+    gap = float((res.U[0].double().cpu() - ref.U).abs().max())
+    return gap, int(ref.status), int(ref.iters)
+
+
 class PhaseClock:
     """Prints the seconds of each phase as it ends."""
 
@@ -829,8 +1111,10 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     sys.path.insert(0, ROOT)
-    from obca_torch import (f32_solver_config, mixed_solver_config, nlp,
-                            parallel_fastpath_config)
+    from obca_torch import (f32_solver_config, mixed_solver_config, nav,
+                            nlp, parallel_fastpath_config)
+    from obca_torch import spec as tspec
+    from obca_torch.solver import ipm
     from obca_torch.solver.kernels import blocktri_dense as bd
     from obca_torch.solver.kernels import blocktri_se as bk
     from obca_torch.solver.kernels import build
@@ -926,10 +1210,8 @@ def main():
     cfg = f32_solver_config(max_iter=ITERS_MAIN)
     main_f32, cap = measure_main_path(bk, base, specs, cfg)
     print("main_path " + json.dumps(main_f32))
-    for name in ("factor_se", "fwd_se", "bwd_matvec_se"):
-        if main_f32["launches"][name] <= 0:
-            raise RuntimeError(f"kernel {name} was not launched on the "
-                               f"main path")
+    require_route("main path", main_f32["launches"], "bwd_matvec_se",
+                  "bwd_se")
     for name, n in main_f32["launches"].items():
         launches[name] += n
     kernel_s = sum(n * synth[k]["ms"]
@@ -988,9 +1270,7 @@ def main():
     main_m, cap_m = measure_main_path(bk, base64, specs64, cfg_m)
     print("main_path_mixed " + json.dumps(main_m))
     lm = main_m["launches"]
-    if min(lm["factor_se"], lm["fwd_se"], lm["bwd_se"]) <= 0 \
-            or lm["bwd_matvec_se"] != 0:
-        raise RuntimeError(f"the mixed route did not run: launches {lm}")
+    require_route("mixed main path", lm, "bwd_se", "bwd_matvec_se")
     for name, n in lm.items():
         launches[name] += n
     print_profile("mixed main path",
@@ -1032,10 +1312,8 @@ def main():
     fam = measure_random_family(bk, specs_r, layouts_r, lcfg_r, cfg_r,
                                 RANDOM_REPEATS)
     print("random_reverse " + json.dumps(fam))
-    for name in ("factor_se", "fwd_se", "bwd_matvec_se"):
-        if fam["launches"][name] <= 0:
-            raise RuntimeError(f"kernel {name} was not launched on the "
-                               f"randomized reverse family")
+    require_route("random reverse", fam["launches"], "bwd_matvec_se",
+                  "bwd_se")
     for name, n in fam["launches"].items():
         launches[name] += n
     check_random_family("random_reverse", fam, RANDOM_MIN_CONVERGED)
@@ -1077,6 +1355,57 @@ def main():
         raise RuntimeError(f"free-time parity gap {gap:.3e} >= "
                            f"{PARITY_TOL}")
     clock.lap("8f")
+
+    # 9. The MPC fleet at full width (bench/run_mpc.py's defaults).
+    base_mpc, specs_mpc = mpc_fleet_batch(device)
+    cfg_mpc = f32_solver_config(max_iter=ITERS_MPC)
+    bk.reset_launches()
+    res_mpc, wall_mpc = run_mpc_fleet(base_mpc, specs_mpc, cfg_mpc,
+                                      MPC_STEPS)
+    fleet = summarize_mpc(specs_mpc, res_mpc, wall_mpc)
+    fleet["launches"] = dict(bk.launches)
+    print("mpc_fleet " + json.dumps(fleet))
+    require_route("mpc fleet", fleet["launches"], "bwd_matvec_se", "bwd_se")
+    for name, n in fleet["launches"].items():
+        launches[name] += n
+    check_mpc(fleet)
+    clock.lap("9")
+
+    # 9s. One vehicle: rollout 0 alone, and the steady per-period time.
+    single = measure_mpc_single(bk, base_mpc, specs_mpc, cfg_mpc)
+    print("mpc_single " + json.dumps(single))
+    require_route("mpc single", single["launches"], "bwd_matvec_se",
+                  "bwd_se")
+    for name, n in single["launches"].items():
+        launches[name] += n
+    # Reading a trace back costs about half a second per solver
+    # iteration, so only rollout 0's initial plan (B = 1) is traced.
+    print_profile("mpc single initial plan (B = 1)",
+                  lambda: run_main_path(base_mpc,
+                                        tspec.take(specs_mpc, slice(0, 1)),
+                                        cfg_mpc))
+    clock.lap("9s")
+
+    # 10. Point-mass navigation at full width, mixed precision.
+    _, specs_nav = nav_batch(device)
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    res_nav = ipm.solve_batch_rescued(
+        specs_nav, mixed_solver_config(max_iter=ITERS_NAV), prob=nav)
+    _sync(device)
+    nav_out = summarize_nav(specs_nav, res_nav, time.perf_counter() - t0)
+    nav_out["launches"] = dict(bk.launches)
+    require_route("nav", nav_out["launches"], "bwd_se", "bwd_matvec_se")
+    for name, n in nav_out["launches"].items():
+        launches[name] += n
+    gap, g_status, g_iters = nav_cpu_gap(specs_nav, res_nav)
+    nav_out["lane0_cpu_gap"] = gap
+    print("nav " + json.dumps(nav_out))
+    print(f"nav_cpu_gap {gap:.3e} lane 0 status {int(res_nav.status[0])} "
+          f"iters {int(res_nav.iters[0])}; cpu float64 status {g_status} "
+          f"iters {g_iters}")
+    check_nav(nav_out, int(res_nav.status[0]))
+    clock.lap("10")
 
     # 6. The kernels line, then the device line.
     kernels = []

@@ -3,9 +3,11 @@
 ``spec_from_numpy`` takes a dict with one entry per ``ProblemSpec``
 field (arrays for tensor fields, Python values for static ones;
 ``obstacles`` a dict of ``Obstacles`` fields), with or without a
-leading batch axis.  ``config_from_numpy`` does the same for
-``SolverConfig``, with dtypes given as anything ``numpy.dtype`` takes.
-Nothing here depends on where the tree came from.
+leading batch axis; ``nav_spec_from_numpy`` does the same for a
+``nav.NavSpec`` and ``dual_state_from_numpy`` for an ``ipm.DualState``.
+``config_from_numpy`` builds a ``SolverConfig``, with dtypes given as
+anything ``numpy.dtype`` takes.  Nothing here depends on where the tree
+came from.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import numpy as np
 import torch
 
 from obca_torch._util import resolve_device
+from obca_torch.nav import NavSpec
+from obca_torch.solver.ipm import DualState
 from obca_torch.spec import Obstacles, ProblemSpec, SolverConfig
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
@@ -45,6 +49,19 @@ def spec_from_numpy(tree: dict, device="cuda",
                     dtype=torch.float64) -> ProblemSpec:
     """A ProblemSpec (or stacked batch) from a dict of numpy leaves."""
     return _build(ProblemSpec, tree, resolve_device(device), dtype)
+
+
+def nav_spec_from_numpy(tree: dict, device="cuda",
+                        dtype=torch.float64) -> NavSpec:
+    """A navigation NavSpec (or stacked batch) from a dict of numpy
+    leaves."""
+    return _build(NavSpec, tree, resolve_device(device), dtype)
+
+
+def dual_state_from_numpy(tree: dict, device="cuda",
+                          dtype=torch.float64) -> DualState:
+    """A DualState from a dict of numpy arrays (nu, s, zL, zU)."""
+    return _build(DualState, tree, resolve_device(device), dtype)
 
 
 def torch_dtype(d):

@@ -10,11 +10,12 @@ leaves carry the same leading B (see ``obca_torch.spec``).
 
 All inter-stage couplings are linear with constant coefficients, so the
 KKT system is block-tridiagonal with a constant sparse off-diagonal
-block E (11 nonzeros, :func:`coupling_structure`).  The dynamics
-Jacobian and the multiplier-weighted dynamics Hessian over the 7 inputs
-(x, u, tau) are written in closed form (the JAX package takes them by
-forward-mode AD); everything else is the same closed-form sparse
-assembly.
+block E (11 nonzeros, :func:`coupling_structure`).  The hot path's
+constraint blocks are written in closed form
+(:func:`constraint_blocks_analytic`; the JAX package takes the dynamics
+part by forward-mode AD); :func:`constraint_blocks` differentiates one
+stage's rows (:func:`stage_constraints_local`) for any problem family,
+and is the reference the closed form is held against.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from obca_torch import dynamics, obca
+from obca_torch import spec as spec_mod
 from obca_torch.geometry import EGO_G
 
 PIN_KAPPA = 1.0  # quadratic pin strength for padded/dummy variables
@@ -124,51 +126,76 @@ def stage_aux(L: Layout, W, spec):
     return x_next, tau_next, u_prev
 
 
-def all_constraints(L: Layout, W, spec):
-    """Full constraint residual array [B, N+1, nc] (inactive rows
-    included; the caller applies ``active``)."""
-    B, Np1 = W.shape[0], L.N + 1
-    dt = W.dtype
-    x = W[..., L.sl_x]
-    u = W[..., L.sl_u]
-    tau = W[..., L.i_tau]
-    lam = W[..., L.sl_lam].reshape(B, Np1, L.M, L.V)
-    mu = W[..., L.sl_mu].reshape(B, Np1, L.M, 4)
-    x_next, tau_next, u_prev = stage_aux(L, W, spec)
+def stage_constraints_local(L: Layout, w, aux, spec, k):
+    """Constraint rows c_k [..., nc] of stages w [..., nw] (inactive
+    rows included).  ``aux`` = (x_next, tau_next, u_prev) per stage,
+    ``k`` the stage index; the spec leaves, ``aux`` and ``k`` broadcast
+    against w's leading axes (one stage: an unbatched spec and a 0-d k,
+    the form :func:`constraint_blocks` differentiates)."""
+    return _stage_rows(L, _stage_vars(L, w), aux, spec, k)
 
-    is0 = torch.zeros(Np1, dtype=dt, device=W.device)
-    is0[0] = 1.0
-    is0 = is0[None, :, None]
-    bc_target = is0 * spec.x0[:, None, :] + (1.0 - is0) * spec.xF[:, None, :]
-    c_bc = x - bc_target
 
-    Ts = spec.Ts[:, None]
-    wb = spec.wheelbase[:, None]
+def _stage_vars(L: Layout, w):
+    """The views (x, u, tau, lam, mu) of stages w [..., nw]."""
+    lead = w.shape[:-1]
+    return (w[..., L.sl_x], w[..., L.sl_u], w[..., L.i_tau],
+            w[..., L.sl_lam].reshape(lead + (L.M, L.V)),
+            w[..., L.sl_mu].reshape(lead + (L.M, 4)))
+
+
+def _stage_rows(L: Layout, stage_vars, aux, spec, k):
+    x, u, tau, lam, mu = stage_vars
+    x_next, tau_next, u_prev = aux
+    dt = x.dtype
+
+    is0 = (k == 0).to(dt)[..., None]
+    c_bc = x - (is0 * spec.x0 + (1.0 - is0) * spec.xF)
+
     if L.fix_time:
         # Fixed time: tau is not threaded through the dynamics and each
         # stage carries the local pin tau_k - 1 = 0 (see obca_tpu.nlp).
         c_dyn = x_next - dynamics.step(
-            x, u, torch.ones((), dtype=dt, device=W.device), Ts, wb)
+            x, u, torch.ones((), dtype=dt, device=x.device), spec.Ts,
+            spec.wheelbase)
         c_tau = tau - 1.0
     else:
-        c_dyn = x_next - dynamics.step(x, u, tau, Ts, wb)
+        c_dyn = x_next - dynamics.step(x, u, tau, spec.Ts, spec.wheelbase)
         c_tau = tau_next - tau
 
     obs = spec.obstacles
-    eq, dist, norm_sq = obca.obca_terms(
-        x, lam, mu, obs.A[:, None], obs.b[:, None], spec.ego_g[:, None])
-    c_obca_eq = eq.reshape(B, Np1, 2 * L.M)
+    eq, dist, norm_sq = obca.obca_terms(x, lam, mu, obs.A, obs.b,
+                                        spec.ego_g)
+    c_obca_eq = eq.reshape(eq.shape[:-2] + (2 * L.M,))
     c_norm = norm_sq - 1.0 if L.signed else 1.0 - norm_sq
-    c_dist = dist - spec.d_min[:, None, None]
+    c_dist = dist - spec.d_min[..., None]
+    return torch.cat([c_bc, c_dyn, c_tau[..., None], c_obca_eq, c_norm,
+                      c_dist, rate_rows(u, u_prev, spec)], dim=-1)
 
+
+def rate_rows(u, u_prev, spec):
+    """The input-rate rows [..., 4]: lim -/+ du per input."""
     du = u - u_prev
-    lim = (spec.du_max * spec.Ts[:, None])[:, None, :]
-    c_rate = torch.stack(
+    lim = spec.du_max * spec.Ts[..., None]
+    return torch.stack(
         [lim[..., 0] - du[..., 0], lim[..., 0] + du[..., 0],
          lim[..., 1] - du[..., 1], lim[..., 1] + du[..., 1]], dim=-1)
-    return torch.cat(
-        [c_bc, c_dyn, c_tau[..., None], c_obca_eq, c_norm, c_dist, c_rate],
-        dim=-1)
+
+
+def at_stages(spec):
+    """A batched spec with a stage axis after the batch axis on every
+    tensor leaf, so that its leaves broadcast against [B, N+1, ...]."""
+    return spec_mod.map_tensors(lambda t: t[:, None], spec)
+
+
+def all_constraints(L: Layout, W, spec):
+    """Full constraint residual array [B, N+1, nc] (inactive rows
+    included; the caller applies ``active``): the stage rows of every
+    stage of W [B, N+1, nw] at once."""
+    # The views of W before the aux's: autograd sums dW in the reverse
+    # order of the views, and the float32 iterates follow that rounding.
+    stage_vars = _stage_vars(L, W)
+    return _stage_rows(L, stage_vars, stage_aux(L, W, spec), at_stages(spec),
+                       torch.arange(L.N + 1, device=W.device))
 
 
 def constraint_masks(L: Layout, spec):
@@ -248,12 +275,14 @@ def total_lagrangian(L: Layout, W, nu, spec, active):
     return objective(L, W, spec) + torch.sum(nu * c, dim=(1, 2))
 
 
-def lagrangian_gradient(L: Layout, W, nu, spec, active):
-    """d total_lagrangian / dW [B, N+1, nw] (autograd of the per-lane
-    sum — exact, because the lanes are independent)."""
+def lagrangian_gradient(L, W, nu, spec, active, lagrangian=None):
+    """d lagrangian / dW [B, N+1, nw] (autograd of the per-lane sum —
+    exact, because the lanes are independent).  ``lagrangian`` is a
+    problem family's ``total_lagrangian`` (default: this module's)."""
+    lagrangian = lagrangian or total_lagrangian
     with torch.enable_grad():
         Wv = W.detach().requires_grad_(True)
-        lag = total_lagrangian(L, Wv, nu, spec, active).sum()
+        lag = lagrangian(L, Wv, nu, spec, active).sum()
         (g,) = torch.autograd.grad(lag, Wv)
     return g
 
@@ -548,14 +577,48 @@ def constraint_blocks_analytic(L: Layout, W, nu, spec):
     return J, Hc
 
 
-def _assemble_k_rhs(L: Layout, W, nu, sigma_w, sigma_c, rhs_w, rhs_c,
-                    spec, active, delta_w):
-    J, Hc = constraint_blocks_analytic(L, W, nu * active, spec)
-    Hobj, _ = objective_stage_hessians(L, spec)
+def constraint_blocks(L, W, nu, spec, c_fn=None):
+    """Per-stage constraint Jacobians J [B, N+1, nc, nw] and
+    nu-weighted constraint Hessians Hc [B, N+1, nw, nw] by automatic
+    differentiation of one stage, ``torch.func.vmap``-ed over the
+    B * (N+1) stages; the stage aux (x_next, tau_next, u_prev) is held
+    constant.  ``c_fn(L, w, aux, spec, k)`` defaults to
+    :func:`stage_constraints_local`; another problem family passes its
+    own.  The reference for :func:`constraint_blocks_analytic`."""
+    c_fn = c_fn or stage_constraints_local
+    B, Np1 = W.shape[0], L.N + 1
+
+    def flat(t):
+        return t.reshape((B * Np1,) + t.shape[2:])
+
+    leaves = spec_mod.tensor_leaves(spec_mod.map_tensors(
+        lambda t: t.repeat_interleave(Np1, dim=0), spec))
+    ks = torch.arange(Np1, device=W.device).repeat(B)
+    aux = [flat(a) for a in stage_aux(L, W, spec)]
+
+    def c_local(w, xn, tn, up, k, *lv):
+        return c_fn(L, w, (xn, tn, up), spec_mod.with_leaves(spec, lv), k)
+
+    def hess_one(w, nu_k, *rest):
+        return torch.func.hessian(
+            lambda ww: torch.dot(nu_k, c_local(ww, *rest)))(w)
+
+    J = torch.func.vmap(torch.func.jacfwd(c_local))(flat(W), *aux, ks,
+                                                    *leaves)
+    Hc = torch.func.vmap(hess_one)(flat(W), flat(nu), *aux, ks, *leaves)
+    return (J.reshape(B, Np1, L.nc, L.nw),
+            Hc.reshape(B, Np1, L.nw, L.nw))
+
+
+def stage_kkt(L, J, Hc, Hobj, sigma_w, sigma_c, rhs_w, rhs_c, active,
+              delta_w):
+    """The stage KKT blocks K [B, N+1, nz, nz] and rhs [B, N+1, nz] from
+    the constraint blocks (J, Hc), the objective Hessian blocks, the
+    barrier diagonals and the per-lane primal regularization."""
     Jm = J * active[..., None]
     H = Hobj + Hc + torch.diag_embed(sigma_w)
     H = H + delta_w[:, None, None, None] * torch.eye(
-        L.nw, dtype=W.dtype, device=W.device)
+        L.nw, dtype=J.dtype, device=J.device)
     top = torch.cat([H, Jm.transpose(-1, -2)], dim=-1)
     bot = torch.cat([Jm, torch.diag_embed(sigma_c)], dim=-1)
     K = torch.cat([top, bot], dim=-2)
@@ -568,8 +631,10 @@ def assemble_kkt_structured(L: Layout, W, nu, sigma_w, sigma_c, rhs_w,
     """Hot-path KKT assembly: (K [B, N+1, nz, nz], e_vals [B, N, nnz],
     rhs [B, N+1, nz]); the dense coupling E is never built.  ``delta_w``
     is the per-lane primal regularization [B]."""
-    K, rhs = _assemble_k_rhs(L, W, nu, sigma_w, sigma_c, rhs_w, rhs_c,
-                             spec, active, delta_w)
+    J, Hc = constraint_blocks_analytic(L, W, nu * active, spec)
+    Hobj, _ = objective_stage_hessians(L, spec)
+    K, rhs = stage_kkt(L, J, Hc, Hobj, sigma_w, sigma_c, rhs_w, rhs_c,
+                       active, delta_w)
     return K, coupling_values(L, spec), rhs
 
 

@@ -6,6 +6,9 @@ ego B = {y : G y <= g} at state x (rotation R(psi), translation t):
     eq      = G' mu_m + R' A_m' lam_m             (= 0)
     dist    = -g' mu_m + lam_m' (A_m t - b_m)     (>= d_min)
     norm_sq = || A_m' lam_m ||^2                  (= 1 signed, <= 1 dist)
+
+and :func:`point_obca_terms`, the point-mass variant of the navigation
+family (no ego polytope: no mu, no eq rows).
 """
 
 from __future__ import annotations
@@ -35,3 +38,19 @@ def obca_terms(x, lam, mu, obs_A, obs_b, ego_g):
             + torch.sum(lam * (At - obs_b), dim=-1))
     norm_sq = (Atlam ** 2).sum(-1)
     return eq, dist, norm_sq
+
+
+def point_obca_terms(p, lam, obs_A, obs_b):
+    """Point-mass variant (the navigation family): dist(p, O_m) >= d_min
+    <=> exists lam_m >= 0 with (A_m p - b_m)' lam_m >= d_min and
+    ||A_m' lam_m|| <= 1.
+
+    p [..., 2], lam [..., M, V]; obs_A [..., M, V, 2], obs_b [..., M, V]
+    broadcast against the leading axes of p.  Returns (dist [..., M],
+    norm_sq [..., M]).
+    """
+    Ap = (obs_A[..., 0] * p[..., 0, None, None]
+          + obs_A[..., 1] * p[..., 1, None, None])           # [..., M, V]
+    dist = torch.sum(lam * (Ap - obs_b), dim=-1)
+    Atlam = torch.einsum("...mvd,...mv->...md", obs_A, lam)
+    return dist, (Atlam ** 2).sum(-1)

@@ -92,19 +92,20 @@ def _all(a):
     return a.reshape(a.shape[0], -1).all(dim=1)
 
 
-def _masks_and_bounds(L, spec):
-    active, is_eq = nlp.constraint_masks(L, spec)
+def _masks_and_bounds(L, spec, prob=nlp):
+    active, is_eq = prob.constraint_masks(L, spec)
     eq_row = active * is_eq
     in_row = active * (1.0 - is_eq)
-    lo, hi, has_lo, has_hi, _pin = nlp.bound_arrays(L, spec)
+    lo, hi, has_lo, has_hi, _pin = prob.bound_arrays(L, spec)
     return (active, eq_row, in_row, lo[:, None], hi[:, None],
             has_lo[:, None], has_hi[:, None])
 
 
-def _merit(L, W, s, spec, mu, rho, eq_row, in_row, lo, hi, has_lo, has_hi):
+def _merit(L, W, s, spec, mu, rho, eq_row, in_row, lo, hi, has_lo, has_hi,
+           prob=nlp):
     """Per-lane barrier merit [B] (inf outside the strict interior)."""
-    f = nlp.objective(L, W, spec)
-    c = nlp.all_constraints(L, W, spec)
+    f = prob.objective(L, W, spec)
+    c = prob.all_constraints(L, W, spec)
     one = torch.ones((), dtype=W.dtype, device=W.device)
     slo = torch.where(has_lo > 0, W - lo, one)
     shi = torch.where(has_hi > 0, hi - W, one)
@@ -122,13 +123,14 @@ def _repeat(t, n):
     return t.repeat_interleave(n, dim=0)
 
 
-def _cold_duals(L, spec, W0, mu0_b, in_row, lo, hi, has_lo, has_hi):
+def _cold_duals(L, spec, W0, mu0_b, in_row, lo, hi, has_lo, has_hi,
+                prob=nlp):
     """The cold dual start at W0 (barrier parameter mu0_b [B, 1, 1]):
     slacks max(c, 1e-2) and capped barrier-consistent multipliers on the
     inequality rows, mu / distance on the bounds."""
     one = torch.ones((), dtype=W0.dtype, device=W0.device)
     zero = torch.zeros((), dtype=W0.dtype, device=W0.device)
-    c0 = nlp.all_constraints(L, W0, spec)
+    c0 = prob.all_constraints(L, W0, spec)
     s0 = torch.where(in_row > 0, torch.clamp(c0, min=1e-2), one)
     # Capped barrier-consistent inequality multipliers (a warm start
     # violating an inequality would otherwise get y0 = mu/1e-2).
@@ -140,7 +142,7 @@ def _cold_duals(L, spec, W0, mu0_b, in_row, lo, hi, has_lo, has_hi):
     return DualState(nu=nu0, s=s0, zL=zL0, zU=zU0)
 
 
-def cold_dual_state(spec, cfg, W0) -> DualState:
+def cold_dual_state(spec, cfg, W0, prob=nlp) -> DualState:
     """The solver's cold dual start at W0 (what a solve without
     ``duals0`` begins from), as a :class:`DualState` in ``cfg.dtype``.
 
@@ -151,25 +153,32 @@ def cold_dual_state(spec, cfg, W0) -> DualState:
     single = spec.x0.dim() == 1
     if single:
         spec, W0 = spec_mod.stack([spec]), W0[None]
-    L = nlp.layout_of(spec)
+    L = prob.layout_of(spec)
     dt = cfg.dtype
     spec = spec_mod.cast_floats(spec, dt)
-    _, _, in_row, lo, hi, has_lo, has_hi = _masks_and_bounds(L, spec)
+    _, _, in_row, lo, hi, has_lo, has_hi = _masks_and_bounds(L, spec, prob)
     mu0_b = torch.full((spec.x0.shape[0], 1, 1), float(cfg.mu_init),
                        dtype=dt, device=spec.x0.device)
     d = _cold_duals(L, spec, W0.to(dt), mu0_b, in_row, lo, hi, has_lo,
-                    has_hi)
+                    has_hi, prob)
     return spec_mod.map_tensors(lambda t: t[0], d) if single else d
 
 
-def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
+def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
+               prob=nlp):
     """Build (initial state, step, layout, final_check) for a batch.
 
     ``spec`` leaves carry a leading B; W0 [B, N+1, nw] (None: cold
-    start); duals0 an optional per-lane :class:`DualState`.
+    start); duals0 an optional per-lane :class:`DualState`.  ``prob`` is
+    the problem module: ``obca_torch.nlp`` (parking) or
+    ``obca_torch.nav`` (point-mass navigation), each with the same
+    stage-structured interface (``layout_of``, ``constraint_masks``,
+    ``bound_arrays``, ``all_constraints``, ``objective``,
+    ``total_lagrangian``, ``assemble_kkt_structured``,
+    ``coupling_structure``, ``default_init``).
     """
-    L = nlp.layout_of(spec)
-    e_rows, e_cols = nlp.coupling_structure(L)
+    L = prob.layout_of(spec)
+    e_rows, e_cols = prob.coupling_structure(L)
     dt = cfg.dtype
     fd = cfg.factor_dtype or dt
     rd = cfg.residual_dtype or dt
@@ -177,7 +186,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
     dev = spec.x0.device
     B = spec.x0.shape[0]
     active, eq_row, in_row, lo, hi, has_lo, has_hi = _masks_and_bounds(
-        L, spec)
+        L, spec, prob)
     one = torch.ones((), dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
     nw, nc = L.nw, L.nc
@@ -195,14 +204,15 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
     step_max = float(cfg.step_max)
 
     if W0 is None:
-        W0 = nlp.default_init(spec, dt)
+        W0 = prob.default_init(spec, dt)
     W0 = W0.to(dt)
     # Anchor the proximal dual regularization at the warm-start duals.
     spec = dataclasses.replace(
         spec, dual_ref=torch.cat([W0[..., L.sl_lam], W0[..., L.sl_mu]], -1))
 
     def grad_lag(W, nu):
-        return nlp.lagrangian_gradient(L, W, nu, spec, active)
+        return nlp.lagrangian_gradient(L, W, nu, spec, active,
+                                       prob.total_lagrangian)
 
     mu0 = torch.full((B,), float(cfg.mu_init), dtype=dt, device=dev)
     if duals0 is not None:
@@ -217,7 +227,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
                           torch.clamp(duals0.zU.to(dt), 1e-12, 1e12), zero)
     else:
         d0 = _cold_duals(L, spec, W0, mu0[:, None, None], in_row, lo, hi,
-                         has_lo, has_hi)
+                         has_lo, has_hi, prob)
         nu0, s0, zL0, zU0 = d0.nu, d0.s, d0.zL, d0.zU
 
     if (duals0 is None or cfg.dual_ls_warm) and cfg.dual_init_ls:
@@ -228,7 +238,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
         sig_c0 = torch.where(eq_row > 0, -1e-4 * one, -one)
         rhs_w0 = -(gl0 - zL0 + zU0)
         rhs_c0 = torch.zeros_like(nu0)
-        K0, ev0, rhs0 = nlp.assemble_kkt_structured(
+        K0, ev0, rhs0 = prob.assemble_kkt_structured(
             L, W0, torch.zeros_like(nu0), sig_w0, sig_c0, rhs_w0, rhs_c0,
             spec, active, torch.zeros((B,), dtype=dt, device=dev))
         reg0 = torch.cat([torch.full((nw,), delta_factor, dtype=dt,
@@ -283,7 +293,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
 
     def kkt_error(W, nu, s, zL, zU, mu):
         gl = grad_lag(W, nu)
-        c = nlp.all_constraints(L, W, spec)
+        c = prob.all_constraints(L, W, spec)
         return kkt_error_pieces(gl, c, W, nu, s, zL, zU, mu)
 
     # Line search: the ls_steps trial points of every lane in one batch
@@ -346,7 +356,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
 
         # --- residuals, convergence test, barrier update ---
         gl = grad_lag(W, nu)
-        c = nlp.all_constraints(L, W, spec)
+        c = prob.all_constraints(L, W, spec)
         err0 = kkt_error_pieces(gl, c, W, nu, s, zL, zU, torch.zeros_like(mu))
         err_mu = kkt_error_pieces(gl, c, W, nu, s, zL, zU, mu)
         conv = (err0 <= tol) & (mu <= 10.0 * mu_min)
@@ -368,7 +378,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
         # Inactive rows solve -d_nu = nu (keeps their multipliers at 0).
         rhs_c = (eq_row * (-c) + in_row * (-(c - mu_b / y))
                  + (1.0 - active) * nu)
-        K, ev, rhs = nlp.assemble_kkt_structured(
+        K, ev, rhs = prob.assemble_kkt_structured(
             L, W, nu, sigma_w, sigma_c, rhs_w, rhs_c, spec, active,
             state.delta_w)
         ev = ev.to(dt)
@@ -413,7 +423,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
         # --- merit line search (all trial points in one batch) ---
         rho = torch.clamp(2.0 * _amax(torch.abs(nu)), min=merit_rho)
         phi0 = _merit(L, W, s, spec, mu, rho, eq_row, in_row, lo, hi,
-                      has_lo, has_hi)
+                      has_lo, has_hi, prob)
         alphas = a_pri[:, None] * halves                        # [B, ls]
         a4 = alphas[:, :, None, None]
         W_try = (W[:, None] + a4 * dW[:, None]).reshape(
@@ -421,7 +431,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
         s_try = torch.where(in_row[:, None] > 0, s[:, None] + a4 * ds[:, None],
                             one).reshape((B * n_ls,) + s.shape[1:])
         phis = _merit(L, W_try, s_try, spec_ls, _repeat(mu, n_ls),
-                      _repeat(rho, n_ls), *ls_masks).reshape(B, n_ls)
+                      _repeat(rho, n_ls), *ls_masks, prob).reshape(B, n_ls)
         ok = phis <= phi0[:, None] - 1e-8 * alphas * torch.abs(phi0)[:, None]
         found = ok.any(dim=1)
         first = ok.to(torch.int8).argmax(dim=1)
@@ -433,7 +443,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
         a_pri_b = a_pri[:, None, None]
         W_full = W + a_pri_b * dW
         s_full = torch.where(in_row > 0, s + a_pri_b * ds, one)
-        c_full = nlp.all_constraints(L, W_full, spec)
+        c_full = prob.all_constraints(L, W_full, spec)
         if cfg.soc:
             rhs_soc = torch.cat(
                 [torch.zeros_like(rhs_w),
@@ -452,7 +462,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
                   & _all(torch.where(has_hi > 0, hi - W_soc, one) > 0)
                   & _all(torch.where(in_row > 0, s_soc, one) > 0))
         phi_soc = _merit(L, W_soc, s_soc, spec, mu, rho, eq_row, in_row, lo,
-                         hi, has_lo, has_hi)
+                         hi, has_lo, has_hi, prob)
         take_soc = (soc_ok & (phi_soc <= phi0 - 1e-8 * torch.abs(phi0))
                     & (alpha < a_pri) & cfg.soc)
 
@@ -535,10 +545,12 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None):
     return state0, step, L, final_check
 
 
-def _run(spec, cfg, W0=None, duals0: DualState | None = None) -> SolveResult:
+def _run(spec, cfg, W0=None, duals0: DualState | None = None,
+         prob=nlp) -> SolveResult:
     """Solve a batch (``spec`` leaves [B, ...]) to convergence or cap."""
     with torch.no_grad():
-        state, step, L, final_check = _make_step(spec, cfg, W0, duals0)
+        state, step, L, final_check = _make_step(spec, cfg, W0, duals0,
+                                                 prob)
         running = ~state.converged & (state.iters < cfg.max_iter)
         while bool(running.any()):
             new = step(state)
@@ -551,7 +563,7 @@ def _run(spec, cfg, W0=None, duals0: DualState | None = None) -> SolveResult:
             final.converged, STATUS_CONVERGED,
             torch.where(final.nan_fail, STATUS_NAN, STATUS_RUNNING))
         pdt = torch.promote_types(W.dtype, spec.x0.dtype)
-        obj = nlp.objective(L, W.to(pdt), spec_mod.cast_floats(spec, pdt))
+        obj = prob.objective(L, W.to(pdt), spec_mod.cast_floats(spec, pdt))
         return SolveResult(
             W=W, nu=final.nu, X=W[..., L.sl_x], U=W[:, :L.N, L.sl_u],
             tau=W[:, 0, L.i_tau], obj=obj, err=final.err, iters=final.iters,
@@ -560,23 +572,24 @@ def _run(spec, cfg, W0=None, duals0: DualState | None = None) -> SolveResult:
                             zU=final.zU))
 
 
-def solve_single(spec, cfg, W0=None, duals0: DualState | None = None):
+def solve_single(spec, cfg, W0=None, duals0: DualState | None = None,
+                 prob=nlp):
     """Solve one instance (unbatched spec, W0 [N+1, nw]); the result's
     fields carry no batch axis."""
     specs = spec_mod.stack([spec])
     d0 = None if duals0 is None else spec_mod.map_tensors(
         lambda t: t[None], duals0)
-    res = _run(specs, cfg, None if W0 is None else W0[None], d0)
+    res = _run(specs, cfg, None if W0 is None else W0[None], d0, prob)
     return SolveResult(*[
         spec_mod.map_tensors(lambda t: t[0], f) for f in res])
 
 
-def solve_batch(specs, cfg, W0=None):
+def solve_batch(specs, cfg, W0=None, prob=nlp):
     """Solve a stacked-spec batch (leading axis B on every leaf)."""
-    return _run(specs, cfg, W0)
+    return _run(specs, cfg, W0, prob=prob)
 
 
-def solve_free_time(spec, cfg, W0=None):
+def solve_free_time(spec, cfg, W0=None, prob=nlp):
     """Free-time solve (``fix_time=False``: the horizon's time scaling
     tau is a variable) by homotopy: the fixed-time problem first, then
     the free-time problem warm-started from its solution and its full
@@ -592,10 +605,11 @@ def solve_free_time(spec, cfg, W0=None):
     specs = spec_mod.stack([spec]) if single else spec
     if W0 is not None and single:
         W0 = W0[None]
-    res_fix = _run(dataclasses.replace(specs, fix_time=True), cfg, W0)
+    res_fix = _run(dataclasses.replace(specs, fix_time=True), cfg, W0,
+                   prob=prob)
     cfg_free = dataclasses.replace(
         cfg, mu_init=torch.clamp(cfg.mu_init, max=1e-3))
-    res = _run(specs, cfg_free, res_fix.W, res_fix.duals)
+    res = _run(specs, cfg_free, res_fix.W, res_fix.duals, prob)
     if single:
         return SolveResult(*[
             spec_mod.map_tensors(lambda t: t[0], f) for f in res])
@@ -610,8 +624,9 @@ def donor_features(specs):
                       specs.obstacles.b.reshape(B, -1)], dim=-1)
 
 
-def solve_batch_rescued(specs, cfg, W0=None, rescue_mu: float = 1e-5,
-                        rescue_rounds: int = 2, rescue_max_iter: int = 25):
+def solve_batch_rescued(specs, cfg, W0=None, prob=nlp,
+                        rescue_mu: float = 1e-5, rescue_rounds: int = 2,
+                        rescue_max_iter: int = 25):
     """Batched solve with neighbour-seeded rescue rounds.
 
     Pass 1 solves every lane from W0.  Each rescue round re-solves the
@@ -626,7 +641,7 @@ def solve_batch_rescued(specs, cfg, W0=None, rescue_mu: float = 1e-5,
     converged lanes' second results; since lanes are independent, the
     port re-solves only the failed lanes (same per-lane results).
     """
-    res = solve_batch(specs, cfg, W0)
+    res = solve_batch(specs, cfg, W0, prob)
     feats = donor_features(specs)
     d2_all = torch.sum((feats[:, None, :] - feats[None, :, :]) ** 2, dim=-1)
     cfg2 = dataclasses.replace(
@@ -646,7 +661,7 @@ def solve_batch_rescued(specs, cfg, W0=None, rescue_mu: float = 1e-5,
         src = donor[fail]
         duals_seed = spec_mod.map_tensors(lambda t: t[src], res.duals)
         res2 = _run(spec_mod.take(specs, fail), cfg_r, res.W[src],
-                    duals_seed)
+                    duals_seed, prob)
         iters = res.iters.index_copy(0, fail, res.iters[fail] + res2.iters)
         duals = DualState(*[
             getattr(res.duals, f.name).index_copy(

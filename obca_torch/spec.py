@@ -35,6 +35,21 @@ def map_tensors(fn, obj):
     return obj
 
 
+def tensor_leaves(obj):
+    """The tensor leaves of ``obj`` in :func:`map_tensors` order."""
+    out = []
+    map_tensors(lambda t: out.append(t) or t, obj)
+    return out
+
+
+def with_leaves(obj, leaves):
+    """``obj`` with its tensor leaves replaced, in order, by ``leaves``
+    (the inverse of :func:`tensor_leaves`; for ``torch.func`` transforms,
+    which take tensors, not dataclasses)."""
+    it = iter(leaves)
+    return map_tensors(lambda _t: next(it), obj)
+
+
 def cast_floats(obj, dtype):
     """Cast the floating-point leaves to ``dtype``."""
     return map_tensors(

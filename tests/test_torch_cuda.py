@@ -408,3 +408,43 @@ def test_cuda_probe_kernels_match_plain(n, offset, cuda):
     assert probes.max_ulps(f, probes.fma_probe_plain(x)) <= 2
     for name in ("stream_add_one", "fma_probe"):
         assert bk.launches[name] == before[name] + 1
+
+
+NAV_VERTS = [
+    [(-4.0, 0.5), (-2.0, 0.5), (-2.0, 5.0), (-4.0, 5.0)],
+    [(2.0, -5.0), (4.0, -5.0), (4.0, -0.5), (2.0, -0.5)],
+]
+
+
+@pytest.mark.gpu
+def test_cuda_nav_mixed_solve_matches_cpu(cuda):
+    """The navigation family on the card under ``mixed_solver_config``
+    (f32 factor: ``factor_se``, ``fwd_se``, ``bwd_se``) at N=40: it
+    converges, launches the mixed route's kernels and not
+    ``bwd_matvec_se``, and its controls are within 1e-6 of the float64
+    solve of the same spec on the CPU."""
+    from obca_torch import SolverConfig, mixed_solver_config, nav
+
+    spec = nav.nav_spec(N=40, vertex_lists=NAV_VERTS, device=cuda)
+    bk.reset_launches()
+    res = nav.solve(spec, mixed_solver_config(max_iter=150))
+    launches = dict(bk.launches)
+    ref = nav.solve(nav.nav_spec(N=40, vertex_lists=NAV_VERTS,
+                                 device="cpu"), SolverConfig(max_iter=150))
+    assert int(res.status) == int(ref.status) == 0
+    assert min(launches["factor_se"], launches["fwd_se"],
+               launches["bwd_se"]) > 0
+    assert launches["bwd_matvec_se"] == 0
+    np.testing.assert_allclose(res.U.cpu().numpy(), ref.U.numpy(), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_nav_float64_factor_refused(cuda):
+    """A nav solve asking for a float64 factor on the card raises, as a
+    parking solve does; nothing falls back to the CPU."""
+    from obca_torch import SolverConfig, nav
+
+    spec = nav.nav_spec(N=10, vertex_lists=NAV_VERTS, device=cuda)
+    with pytest.raises(TypeError):
+        nav.solve(spec, SolverConfig(max_iter=5))
