@@ -92,8 +92,11 @@ non-zero, and no result line is printed):
    (``geometry.ego_clearance_exact``, the exact polygon distance where
    that SAT gap is below), every rollout nearer its goal at the end;
 9s. rollout 0 alone (B = 1) for 30 and for 10 periods: the per-period
-   time a single vehicle sees and its steady slope (no gate); then its
-   initial plan under torch.profiler;
+   time a single vehicle sees and its steady slope (no gate); the
+   ``factor_se``, ``fwd_se`` and ``bwd_matvec_se`` kernels against their
+   plain versions (within 1e-4 relative) on a system of its period-2
+   re-solve, captured in the warm-up run; then its first 4 closed-loop
+   periods (``mpc.run`` from its initial plan) under torch.profiler;
 10. the navigation family: 128 lanes of ``nav.nav_spec()`` (N=60, nz =
    44) on the grazing layout of ``tests/test_nav.py``, start y shifted
    by ``uniform(-0.4, 0.4)`` draws, ``ipm.solve_batch_rescued(...,
@@ -102,7 +105,10 @@ non-zero, and no result line is printed):
    1e-5 of its boundary conditions and every stage point at least d_min
    - 1e-4 outside every obstacle, at least the JAX package's converged
    count less 3, and lane 0's controls within 1e-3 of the port's float64
-   solve of the same spec on the CPU;
+   solve of the same spec on the CPU; ``factor_se``, ``fwd_se`` and
+   ``bwd_se`` against their plain versions (within 1e-4 relative) on the
+   counted run's first-iteration system and on its last one (a rescue
+   round's, at fewer lanes, when one ran), captured in that run;
 6. one ``kernels`` JSON line (launches summed over the counted runs of
    phases 3b, 4, 6d, 4m, 7, 8p, 9, 9s and 10; each solver kernel's nz =
    72 numbers from phase 3w beside its own), then the device line, last.
@@ -137,7 +143,7 @@ PARITY_TOL = 1e-3
 DENSE_TOL = 1e-3
 # Phase 9: bench/run_mpc.py's defaults (fleet, f32, N=80, Ts=0.3).
 B_MPC, MPC_SPREAD, ITERS_MPC = 128, 0.3, 70
-MPC_STEPS, MPC_STEPS_SHORT = 30, 10
+MPC_STEPS, MPC_STEPS_SHORT, MPC_PROFILE_STEPS = 30, 10, 4
 RESOLVE_MU, RESOLVE_ITERS, RESOLVE_TOL = 1e-4, 60, 1e-3
 MPC_MIN_STEP_CONV = 0.90
 # Phase 10: the nav batch on tests/test_nav.py's grazing layout.
@@ -151,6 +157,9 @@ NAV_BC_TOL, NAV_CLEAR_TOL, NAV_PARITY_TOL = 1e-5, 1e-4, 1e-3
 # CPU: PYTHONPATH=. python tests/test_torch_nav.py); the port may
 # converge NAV_COUNT_SLACK fewer.
 NAV_JAX_CONVERGED, NAV_COUNT_SLACK = 128, 3
+# The kernels each solver route runs.
+F32_ROUTE = ("factor_se", "fwd_se", "bwd_matvec_se")
+MIXED_ROUTE = ("factor_se", "fwd_se", "bwd_se")
 _PALLAS = "obca_tpu/solver/pallas/blocktri_kernel.py"
 # kernel -> (the TPU kernel it replaces, its source in the port)
 KERNELS = {
@@ -441,25 +450,36 @@ class FirstIterationCapture:
     """Records the (K, ev, reg) of the second factorization (the first
     IPM iteration; the first one is the dual least-squares start) and the
     right-hand side of the forward substitution that follows it, while
-    passing every call through to the real wrapper."""
+    passing every call through to the real wrapper.  With ``keep_last``
+    it also records the run's last factorization and the right-hand side
+    after it (``last_system``, ``last_rhs``); the copies are made on the
+    card and add no launch of the port's kernels."""
 
-    def __init__(self, bk):
+    def __init__(self, bk, keep_last=False):
         self.bk = bk
+        self.keep_last = keep_last
         self.n_factor = 0
-        self.system = None
-        self.rhs = None
+        self.system = self.rhs = None
+        self.last_system = self.last_rhs = None
         self._factor, self._fwd = bk.factor_se, bk.fwd_se
 
     def __enter__(self):
         def factor(K, ev, reg, pat):
             self.n_factor += 1
+            copy = None
+            if self.n_factor == 2 or self.keep_last:
+                copy = (K.clone(), ev.clone(), reg.clone(), pat)
             if self.n_factor == 2:
-                self.system = (K.clone(), ev.clone(), reg.clone(), pat)
+                self.system = copy
+            if self.keep_last:
+                self.last_system, self.last_rhs = copy, None
             return self._factor(K, ev, reg, pat)
 
         def fwd(Sinv, ev, r, pat):
             if self.system is not None and self.rhs is None:
                 self.rhs = r.clone()
+            if self.last_system is not None and self.last_rhs is None:
+                self.last_rhs = r.clone()
             return self._fwd(Sinv, ev, r, pat)
 
         self.bk.factor_se, self.bk.fwd_se = factor, fwd
@@ -604,7 +624,8 @@ def measure_main_path(bk, base, specs, cfg):
 def print_profile(label, run, wall_median=None):
     """Profile ``run`` and print its device busy share of
     ``wall_median`` (the unprofiled wall of the same work; None: of the
-    profiled run's own wall), the top kernels and the port's kernels."""
+    profiled run's own wall), the top kernels and the port's kernels.
+    Returns the profiled wall and the busy seconds."""
     p_wall, p_busy, p_top, p_ours = device_profile(run)
     if p_busy > 0:
         ref, what = ((wall_median, "unprofiled median wall")
@@ -620,6 +641,7 @@ def print_profile(label, run, wall_median=None):
     else:
         print(f"profiled {label}: device time not measured (the "
               "profiler recorded no CUDA kernels)")
+    return p_wall, p_busy
 
 
 def dense_vs_structured(bk, nw, rows, cols, K, ev, reg, rhs):
@@ -957,13 +979,16 @@ def check_mpc(out):
 def measure_mpc_single(bk, base, specs, cfg, steps=MPC_STEPS,
                        steps_short=MPC_STEPS_SHORT):
     """Phase 9s: rollout 0 alone (B = 1) through ``run_mpc_fleet``: a
-    2-period warm-up, the counted run of ``steps`` periods, then one of
-    ``steps_short``; the steady per-period time is the slope between the
-    two walls (``bench/run_mpc.py``'s method)."""
+    2-period warm-up (which captures its last factorization, one of
+    period 2's re-solve), the counted run of ``steps`` periods, then one
+    of ``steps_short``; the steady per-period time is the slope between
+    the two walls (``bench/run_mpc.py``'s method).  Returns (summary,
+    the capture)."""
     from obca_torch import spec as tspec
 
     one = tspec.take(specs, slice(0, 1))
-    run_mpc_fleet(base, one, cfg, 2)
+    with FirstIterationCapture(bk, keep_last=True) as cap:
+        run_mpc_fleet(base, one, cfg, 2)
     bk.reset_launches()
     res, wall = run_mpc_fleet(base, one, cfg, steps)
     launches = dict(bk.launches)
@@ -982,7 +1007,52 @@ def measure_mpc_single(bk, base, specs, cfg, steps=MPC_STEPS,
         "resolve_iters_p50": float(res.iters.float().median()),
         "resolve_iters_max": int(res.iters.max()),
         "launches": launches,
-    }
+    }, cap
+
+
+def profile_mpc_periods(base, specs, cfg, steps=MPC_PROFILE_STEPS):
+    """Rollout 0's first ``steps`` closed-loop periods alone under
+    torch.profiler: ``mpc.run`` from its initial plan (solved before the
+    trace, as ``run_fleet`` solves it at B = 1), with phase 9's re-solve
+    knobs.  Prints the device's busy share of those periods and their
+    iterations."""
+    from obca_torch import mpc
+    from obca_torch import spec as tspec
+    from obca_torch.solver import ipm
+    from obca_torch.warmstart import geometric, lattice
+
+    spec0 = tspec.take(specs, 0)
+    lcfg = lattice.LatticeConfig.for_spec(base)
+    W0 = geometric.lattice_warm_start(
+        tspec.take(specs, slice(0, 1)), dtype=cfg.dtype, cfg=lcfg,
+        field=lattice.plan_field(base, lcfg))[0]
+    res0 = ipm.solve_single(spec0, cfg, W0)
+    out = {}
+
+    def periods():
+        out["res"] = mpc.run(spec0, cfg, steps, W0, res0=res0,
+                             resolve_mu=RESOLVE_MU,
+                             resolve_max_iter=RESOLVE_ITERS,
+                             resolve_tol=RESOLVE_TOL)
+
+    wall, busy = print_profile(
+        f"mpc single, closed-loop periods 1-{steps} (B = 1)", periods)
+    print(f"mpc single periods 1-{steps}: iterations "
+          f"{out['res'].iters.tolist()}, status "
+          f"{out['res'].status.tolist()}, "
+          f"{1e3 * wall / steps:.1f} ms a period profiled, device busy "
+          f"{'not measured' if busy <= 0 else f'{100 * busy / wall:.1f}%'}")
+
+
+def compare_captured(bk, label, system, rhs, device, route):
+    """The kernels against their plain versions on a captured system
+    (``compare_kernels``): every output printed, and the kernels of
+    ``route`` held to SYNTH_TOL."""
+    K, ev, reg, pat = system
+    res = compare_kernels(bk, pat, K, ev, reg, rhs, device, timing=False)
+    label = f"{label} (B={K.shape[0]}, S={K.shape[1]}, nz={K.shape[2]})"
+    print_errors(label, res)
+    check_errors(label, {name: res[name] for name in route})
 
 
 def nav_batch(device, B=B_NAV, N=60, spread=NAV_SPREAD, seed=0):
@@ -1113,7 +1183,6 @@ def main():
     sys.path.insert(0, ROOT)
     from obca_torch import (f32_solver_config, mixed_solver_config, nav,
                             nlp, parallel_fastpath_config)
-    from obca_torch import spec as tspec
     from obca_torch.solver import ipm
     from obca_torch.solver.kernels import blocktri_dense as bd
     from obca_torch.solver.kernels import blocktri_se as bk
@@ -1372,32 +1441,38 @@ def main():
     clock.lap("9")
 
     # 9s. One vehicle: rollout 0 alone, and the steady per-period time.
-    single = measure_mpc_single(bk, base_mpc, specs_mpc, cfg_mpc)
+    single, cap_mpc = measure_mpc_single(bk, base_mpc, specs_mpc, cfg_mpc)
     print("mpc_single " + json.dumps(single))
     require_route("mpc single", single["launches"], "bwd_matvec_se",
                   "bwd_se")
     for name, n in single["launches"].items():
         launches[name] += n
+    compare_captured(bk, "mpc single re-solve", cap_mpc.last_system,
+                     cap_mpc.last_rhs, device, F32_ROUTE)
     # Reading a trace back costs about half a second per solver
-    # iteration, so only rollout 0's initial plan (B = 1) is traced.
-    print_profile("mpc single initial plan (B = 1)",
-                  lambda: run_main_path(base_mpc,
-                                        tspec.take(specs_mpc, slice(0, 1)),
-                                        cfg_mpc))
+    # iteration, so only a few closed-loop periods are traced.
+    profile_mpc_periods(base_mpc, specs_mpc, cfg_mpc)
     clock.lap("9s")
 
     # 10. Point-mass navigation at full width, mixed precision.
+    # The counted run also captures its first IPM iteration's system
+    # and its last one (a rescue round's, at fewer lanes, when one ran).
     _, specs_nav = nav_batch(device)
     bk.reset_launches()
     t0 = time.perf_counter()
-    res_nav = ipm.solve_batch_rescued(
-        specs_nav, mixed_solver_config(max_iter=ITERS_NAV), prob=nav)
-    _sync(device)
+    with FirstIterationCapture(bk, keep_last=True) as cap_nav:
+        res_nav = ipm.solve_batch_rescued(
+            specs_nav, mixed_solver_config(max_iter=ITERS_NAV), prob=nav)
+        _sync(device)
     nav_out = summarize_nav(specs_nav, res_nav, time.perf_counter() - t0)
     nav_out["launches"] = dict(bk.launches)
     require_route("nav", nav_out["launches"], "bwd_se", "bwd_matvec_se")
     for name, n in nav_out["launches"].items():
         launches[name] += n
+    compare_captured(bk, "nav first-iteration", cap_nav.system, cap_nav.rhs,
+                     device, MIXED_ROUTE)
+    compare_captured(bk, "nav last iteration", cap_nav.last_system,
+                     cap_nav.last_rhs, device, MIXED_ROUTE)
     gap, g_status, g_iters = nav_cpu_gap(specs_nav, res_nav)
     nav_out["lane0_cpu_gap"] = gap
     print("nav " + json.dumps(nav_out))

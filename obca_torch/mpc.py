@@ -10,9 +10,9 @@ being shifted so it stays time-aligned.
 Where the JAX package runs one rollout as a ``lax.scan`` and a fleet as
 its ``vmap``, the port runs every rollout in one batched closed loop: a
 host loop over the control periods, each period one batched
-``ipm._run`` over all lanes, each lane with its own measured state and
-previous control.  Lanes freeze independently inside ``_run``, as they
-do under ``vmap``, so the per-lane results are the same; a period's
+``ipm.solve_batch`` over all lanes, each lane with its own measured
+state, previous control and warm dual state.  Lanes freeze
+independently inside the batched solve, as they do under ``vmap``, so the per-lane results are the same; a period's
 solve runs until its slowest lane converges or reaches the cap.  Plans
 are batch-major: W [B, N+1, nw], duals [B, N+1, nc].
 """
@@ -99,11 +99,17 @@ def resolve_config(cfg, resolve_mu=1e-4, resolve_max_iter=60,
 
 
 def _select(ok, new, old):
-    """Per lane: ``new`` where ``ok``, else ``old`` (DualStates too)."""
+    """Per lane: ``new`` where ``ok`` [B], else ``old`` (tensors
+    [B, ...] or DualStates)."""
+    def pick(a, b):
+        return torch.where(ok.reshape(ok.shape + (1,) * (a.dim() - 1)),
+                           a, b)
+
+    if isinstance(new, torch.Tensor):
+        return pick(new, old)
     return spec_mod.with_leaves(new, [
-        torch.where(ipm._lane(ok, a), a, b)
-        for a, b in zip(spec_mod.tensor_leaves(new),
-                        spec_mod.tensor_leaves(old))])
+        pick(a, b) for a, b in zip(spec_mod.tensor_leaves(new),
+                                   spec_mod.tensor_leaves(old))])
 
 
 def _closed_loop(specs, cfg, n_steps, W0, res0, disturbance, cfg_warm):
@@ -119,7 +125,7 @@ def _closed_loop(specs, cfg, n_steps, W0, res0, disturbance, cfg_warm):
     # A failed initial plan starts from W0 with the solver's cold duals:
     # a failed solve's duals beside W0 are no consistent pair.
     ok0 = res0.status == ipm.STATUS_CONVERGED
-    W_plan = torch.where(ipm._lane(ok0, W0), res0.W.to(dt), W0)
+    W_plan = _select(ok0, res0.W.to(dt), W0)
     duals = _select(ok0, spec_mod.cast_floats(res0.duals, dt),
                     ipm.cold_dual_state(specs, cfg, W0))
 
@@ -136,15 +142,14 @@ def _closed_loop(specs, cfg, n_steps, W0, res0, disturbance, cfg_warm):
         # state.
         W_ws = W_plan.clone()
         W_ws[:, 0, L.sl_x] = x
-        res = ipm._run(spec_t, cfg_warm, W_ws, duals)
+        res = ipm.solve_batch(spec_t, cfg_warm, W_ws, duals0=duals)
         ok = res.status == ipm.STATUS_CONVERGED
         # Failure fallback: the stale plan's control for this period.
         u0 = torch.where(ok[:, None], res.U[:, 0], W_plan[:, 0, L.sl_u])
         x = dynamics.step(x, u0, res.tau, specs.Ts,
                           specs.wheelbase) + disturbance[:, t]
         # Shift whichever plan was executed.
-        W_plan = shift_plan(
-            torch.where(ipm._lane(ok, res.W), res.W, W_plan), L)
+        W_plan = shift_plan(_select(ok, res.W, W_plan), L)
         duals = shift_dual_state(_select(ok, res.duals, duals), L)
         u_prev = u0
         xs.append(x)

@@ -584,9 +584,12 @@ def solve_single(spec, cfg, W0=None, duals0: DualState | None = None,
         spec_mod.map_tensors(lambda t: t[0], f) for f in res])
 
 
-def solve_batch(specs, cfg, W0=None, prob=nlp):
-    """Solve a stacked-spec batch (leading axis B on every leaf)."""
-    return _run(specs, cfg, W0, prob=prob)
+def solve_batch(specs, cfg, W0=None, prob=nlp,
+                duals0: DualState | None = None):
+    """Solve a stacked-spec batch (leading axis B on every leaf), from
+    the per-lane warm starts W0 [B, N+1, nw] and, if given, the per-lane
+    dual state ``duals0``."""
+    return _run(specs, cfg, W0, duals0, prob)
 
 
 def solve_free_time(spec, cfg, W0=None, prob=nlp):

@@ -310,35 +310,51 @@ def test_nav_solve_batch_matches_jax(jax_solve):
 
 
 def test_nav_rescue_and_cold_duals():
-    """The rescue path with ``prob=nav``: under a cap that one lane of
-    three misses, pass 1 leaves it unconverged, the rescue round seeds
-    it from its nearest converged neighbour (``donor_features`` reads
-    the nav obstacles) and it converges; ``cold_dual_state`` accepts the
-    nav problem (its dual_ref has no mu block)."""
-    base = nav.nav_spec(N=24, Ts=0.45, vertex_lists=VERTS, device="cpu")
-    specs = tspec.stack([dataclasses.replace(
-        base, x0=base.x0 + torch.tensor([0.0, dy, 0.0, 0.0],
-                                        dtype=torch.float64))
-        for dy in (-0.4, -0.2, 0.2)])
-    cfg = SolverConfig(max_iter=150)
+    """The rescue path with ``prob=nav`` against the JAX package's on
+    the same 3-lane batch (N=24): under a cap that one lane of three
+    misses, pass 1 leaves it unconverged, the rescue round seeds it from
+    its nearest converged neighbour (``donor_features`` reads the nav
+    obstacles) and it converges, with the same statuses and iterations
+    as ``jipm.solve_batch_rescued(..., prob=jnav)`` and controls within
+    1e-6 (one rescue round on both sides: the batch is clean after it,
+    so a second round would be skipped by both); then ``cold_dual_state(..., prob=nav)`` (its dual_ref has no
+    mu block) against the JAX package's, every leaf within 1e-12."""
+    base = jnav.nav_spec(N=24, Ts=0.45, vertex_lists=VERTS)
+    jspecs = [dataclasses.replace(base, x0=base.x0.at[1].add(dy))
+              for dy in (-0.4, -0.2, 0.2)]
+    jbatch = jax.tree.map(lambda *a: jnp.stack(a), *jspecs)
+    specs = tspec.stack([_port_spec(s) for s in jspecs])
+    jcfg = JSolverConfig(max_iter=150)
+    cfg = config_from_numpy(_to_numpy_tree(jcfg))
     full = ipm.solve_batch(specs, cfg, prob=nav)
     assert bool((full.status == ipm.STATUS_CONVERGED).all())
     cap = int(full.iters.min())
     assert cap < int(full.iters.max())
-    capped = dataclasses.replace(cfg, max_iter=cap)
+    jcapped = JSolverConfig(max_iter=cap)
+    capped = config_from_numpy(_to_numpy_tree(jcapped))
     res1 = ipm.solve_batch(specs, capped, prob=nav)
     failed = res1.status != ipm.STATUS_CONVERGED
     assert 0 < int(failed.sum()) < 3
-    res = ipm.solve_batch_rescued(specs, capped, prob=nav)
+    res = ipm.solve_batch_rescued(specs, capped, prob=nav, rescue_rounds=1)
     assert bool((res.status == ipm.STATUS_CONVERGED).all())
     assert bool((res.iters[failed] > cap).all())
     assert bool((res.iters[~failed] == res1.iters[~failed]).all())
+    jres = jax.jit(lambda sp: jipm.solve_batch_rescued(
+        sp, jcapped, prob=jnav, rescue_rounds=1))(jbatch)
+    np.testing.assert_array_equal(res.status.numpy(),
+                                  np.asarray(jres.status))
+    np.testing.assert_array_equal(res.iters.numpy(), np.asarray(jres.iters))
+    _close(res.U, jres.U, atol=1e-6)
 
     W0 = nav.default_init(specs)
     d = ipm.cold_dual_state(specs, cfg, W0, prob=nav)
+    jd = jax.jit(jax.vmap(lambda sp, w: jipm.cold_dual_state(
+        sp, jcfg, w, prob=jnav)))(jbatch, jnp.asarray(W0.numpy()))
     L = nav.layout_of(specs)
     assert d.nu.shape == (3, L.N + 1, L.nc)
     assert d.zL.shape == W0.shape
+    for f in dataclasses.fields(ipm.DualState):
+        _close(getattr(d, f.name), getattr(jd, f.name), atol=1e-12)
     _, _, in_row, *_ = ipm._masks_and_bounds(L, specs, nav)
     assert bool((d.nu[in_row > 0] < 0).all())
 
