@@ -109,9 +109,36 @@ non-zero, and no result line is printed):
    ``bwd_se`` against their plain versions (within 1e-4 relative) on the
    counted run's first-iteration system and on its last one (a rescue
    round's, at fewer lanes, when one ran), captured in that run;
+11. the f32 main path sharded: a one-rank NCCL group
+   (``parallel.distributed.initialize`` on a free localhost port), its
+   ``global_scenario_mesh`` and ``parallel.mesh.solve_sharded`` on phase
+   4's batch from its lattice warm starts under
+   ``f32_solver_config(max_iter=55)``, counted, with ``ipm.solve_batch``
+   on the same inputs beside it: statuses and iterations equal, max |dU|
+   <= 1e-5 (printed, with whether it is bitwise), the all-reduced metrics
+   equal to the same reductions made here, the f32 route launched; the
+   group is destroyed after;
+11p. two worker processes over gloo on the one card (NCCL refuses two
+   ranks on one GPU), each on its ``process_shard`` (64 lanes) of
+   exactly phase 11's inputs, written to a temporary npz file: both
+   ranks' reduced converged count equal to the union's, the reduced max
+   error the larger rank's, the union's converged count at least phase
+   11's less 2, U within 1e-3 of phase 11 on the lanes converged in
+   both; a worker that fails, exits non-zero or outlives its timeout
+   fails the phase;
+12. cyclic reduction at the main path's width
+   (``obca_torch.tools.bench_cyclic``, B=128, nz=56, S = 81, 321, 641):
+   float64 within 1e-8 relative of the plain sequential ``blocktri``
+   (residual printed), float32 within 1e-4 of the dense kernels
+   (counted), the times of both, the peak memory and the verdict;
+13. ``ipm.debug_iterate`` on the golden ``reverse_parking_N80`` warm
+   start (B=1, ``f32_solver_config()``, 10 iterations): within 1e-6
+   relative of 10 plain steps of the same ``_make_step`` (and whether
+   bitwise), every diagnostic finite; its first and last lines printed;
 6. one ``kernels`` JSON line (launches summed over the counted runs of
-   phases 3b, 4, 6d, 4m, 7, 8p, 9, 9s and 10; each solver kernel's nz =
-   72 numbers from phase 3w beside its own), then the device line, last.
+   phases 3b, 4, 6d, 4m, 7, 8p, 9, 9s, 10, 11, 11p (the workers' counts)
+   and 12; each solver kernel's nz = 72 numbers from phase 3w beside its
+   own), then the device line, last.
 
 Each phase prints its seconds.
 
@@ -124,6 +151,7 @@ import dataclasses
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -157,6 +185,14 @@ NAV_BC_TOL, NAV_CLEAR_TOL, NAV_PARITY_TOL = 1e-5, 1e-4, 1e-3
 # CPU: PYTHONPATH=. python tests/test_torch_nav.py); the port may
 # converge NAV_COUNT_SLACK fewer.
 NAV_JAX_CONVERGED, NAV_COUNT_SLACK = 128, 3
+# Phase 11: the sharded f32 main path against solve_batch; 11p: two
+# worker ranks over gloo, each given this long, may converge
+# SHARD_COUNT_SLACK fewer lanes than phase 11 in all.
+SHARD_U_TOL, SHARD_COUNT_SLACK, SHARD_WORKER_TIMEOUT = 1e-5, 2, 300
+# Phase 12: cyclic reduction at the main path's width; phase 13: the
+# debug iterate against the plain steps.
+CR_SIZES, CR_TOL_F64 = (81, 321, 641), 1e-8
+DEBUG_ITERS, DEBUG_TOL = 10, 1e-6
 # The kernels each solver route runs.
 F32_ROUTE = ("factor_se", "fwd_se", "bwd_matvec_se")
 MIXED_ROUTE = ("factor_se", "fwd_se", "bwd_se")
@@ -1152,6 +1188,346 @@ def nav_cpu_gap(specs, res):
     return gap, int(ref.status), int(ref.iters)
 
 
+def free_port():
+    """A free localhost TCP port for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def local_metrics(res):
+    """``mesh.solve_sharded``'s metrics computed here from one result,
+    with the mesh's arithmetic (float64 sums, the means divided after
+    the sum): what one rank's all-reduce must give back."""
+    import torch
+    from obca_torch.solver import ipm
+
+    B = float(res.status.shape[0])
+    f64 = torch.float64
+    return {
+        "n_converged": int((res.status == ipm.STATUS_CONVERGED).sum()),
+        "max_err": float(res.err.to(f64).max().to(res.err.dtype)),
+        "mean_iters": float((res.iters.to(f64).sum() / B).float()),
+        "mean_obj": float((res.obj.to(f64).sum() / B).to(res.obj.dtype)),
+    }
+
+
+def run_sharded(bk, specs, W0, cfg, backend="nccl"):
+    """Phase 11: a one-rank process group on this card (``backend``; the
+    CPU rehearsal passes "gloo"), its global mesh, ``solve_sharded``
+    counted (every launch count set to 0 just before, read just after)
+    and ``ipm.solve_batch`` on the same inputs beside it; the group is
+    destroyed before the function returns.  Returns (summary, the
+    sharded result)."""
+    import torch
+    from obca_torch.parallel import distributed
+    from obca_torch.parallel import mesh as mesh_mod
+    from obca_torch.solver import ipm
+
+    dev = specs.x0.device
+    distributed.initialize(f"localhost:{free_port()}", num_processes=1,
+                           process_id=0, local_device_ids=[str(dev)],
+                           backend=backend)
+    try:
+        mesh = distributed.global_scenario_mesh()
+        bk.reset_launches()
+        t0 = time.perf_counter()
+        res, met = mesh_mod.solve_sharded(specs, cfg, mesh, W0)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(bk.launches)
+        ref = ipm.solve_batch(specs, cfg, W0)
+        _sync(dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    dU = float((res.U - ref.U).abs().max())
+    return {
+        "B": int(specs.x0.shape[0]), "backend": backend,
+        "mesh_devices": [str(d) for d in mesh.devices],
+        "converged": int((res.status == ipm.STATUS_CONVERGED).sum()),
+        "wall_s": wall,
+        "status_equal": bool(torch.equal(res.status, ref.status)),
+        "iters_equal": bool(torch.equal(res.iters, ref.iters)),
+        "max_abs_dU": dU, "bitwise": bool(torch.equal(res.U, ref.U)),
+        "metrics": {k: float(v) for k, v in met.items()},
+        "local_metrics": local_metrics(res),
+        "launches": launches,
+    }, res
+
+
+def check_sharded(out):
+    """Phase 11's gates."""
+    if not (out["status_equal"] and out["iters_equal"]):
+        raise RuntimeError(f"sharded solve: statuses or iterations differ "
+                           f"from solve_batch: {out}")
+    if not out["max_abs_dU"] <= SHARD_U_TOL:
+        raise RuntimeError(f"sharded solve: max |dU| {out['max_abs_dU']:.3e}"
+                           f" > {SHARD_U_TOL}")
+    if out["metrics"] != {k: float(v)
+                          for k, v in out["local_metrics"].items()}:
+        raise RuntimeError(f"sharded solve: the reduced metrics "
+                           f"{out['metrics']} are not the local ones "
+                           f"{out['local_metrics']}")
+    require_route("sharded solve", out["launches"], "bwd_matvec_se",
+                  "bwd_se")
+
+
+# One rank of phase 11p: joins a gloo group, solves its process_shard of
+# the batch in an npz file (spec leaves under "/"-joined keys, W0 and
+# max_iter) under f32_solver_config, and writes its lanes, their statuses,
+# iterations and errors, the all-reduced metrics and its launch counts.
+SHARD_WORKER = r"""
+import json
+import sys
+rank, world, port, root, inp, out, device = sys.argv[1:8]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from obca_torch import f32_solver_config
+from obca_torch import spec as spec_mod
+from obca_torch.convert import spec_from_numpy
+from obca_torch.parallel import distributed
+from obca_torch.parallel import mesh as mesh_mod
+from obca_torch.solver.kernels import runtime
+
+distributed.initialize(f"localhost:{port}", num_processes=int(world),
+                       process_id=int(rank), local_device_ids=[device],
+                       backend="gloo")
+mesh = distributed.global_scenario_mesh()
+flat = np.load(inp)
+tree = {}
+for key in flat.files:
+    *path, leaf = key.split("/")
+    node = tree
+    for p in path:
+        node = node.setdefault(p, {})
+    node[leaf] = flat[key]
+W0 = torch.as_tensor(tree.pop("W0"), device=device)
+cfg = f32_solver_config(max_iter=int(tree.pop("max_iter")))
+specs = spec_from_numpy(tree, device=device, dtype=torch.float32)
+lanes = distributed.process_shard(specs.x0.shape[0])
+runtime.reset_launches()
+res, met = mesh_mod.solve_sharded(spec_mod.take(specs, lanes), cfg, mesh,
+                                  W0[lanes])
+if torch.device(device).type == "cuda":
+    torch.cuda.synchronize()
+launches = dict(runtime.launches)
+np.savez(out, lo=lanes.start, U=res.U.cpu().numpy(),
+         status=res.status.cpu().numpy(), iters=res.iters.cpu().numpy(),
+         err=res.err.cpu().numpy(), launches=json.dumps(launches),
+         **{k: v.cpu().numpy() for k, v in met.items()})
+torch.distributed.destroy_process_group()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "obca_tpu")]
+if bad:
+    sys.exit(f"worker imported {bad}")
+"""
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def run_shard_workers(specs, W0, max_iter, n_ranks=2,
+                      timeout=SHARD_WORKER_TIMEOUT):
+    """Phase 11p: ``n_ranks`` worker processes over gloo on the batch's
+    device, each solving its ``process_shard`` of exactly phase 11's
+    inputs (written to a temporary npz file).  A worker that fails, exits
+    non-zero or outlives ``timeout`` fails the phase; every worker is
+    stopped before this returns.  Returns each rank's outputs."""
+    import tempfile
+
+    from obca_torch.convert import to_numpy_tree
+
+    device = str(specs.x0.device)
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = os.path.join(tmp, "batch.npz")
+        np.savez(inp, W0=W0.cpu().numpy(), max_iter=max_iter,
+                 **_flat_tree(to_numpy_tree(specs)))
+        port = str(free_port())
+        env = {**os.environ, "OMP_NUM_THREADS": "1"}
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(n_ranks)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", SHARD_WORKER, str(r), str(n_ranks), port,
+             ROOT, inp, outs[r], device],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env) for r in range(n_ranks)]
+        try:
+            for r, p in enumerate(procs):
+                out, err = p.communicate(timeout=timeout)
+                if p.returncode != 0:
+                    raise RuntimeError(f"shard worker {r} exited "
+                                       f"{p.returncode}:\n{out}\n"
+                                       f"{err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for path in outs:
+            with np.load(path) as f:
+                d = {k: f[k] for k in f.files}
+            d["launches"] = json.loads(str(d["launches"]))
+            ranks.append(d)
+    return ranks
+
+
+def summarize_shard_workers(ranks, res11):
+    """Phase 11p's numbers: each rank's reduced metrics, the union of
+    the ranks' lanes, and the union against phase 11's result on the
+    lanes converged in both."""
+    from obca_torch.solver import ipm
+
+    order = np.argsort([int(d["lo"]) for d in ranks])
+    ranks = [ranks[i] for i in order]
+    status = np.concatenate([d["status"] for d in ranks])
+    U = np.concatenate([d["U"] for d in ranks])
+    ok = status == ipm.STATUS_CONVERGED
+    ok11 = res11.status.cpu().numpy() == ipm.STATUS_CONVERGED
+    both = ok & ok11
+    gap = (float(np.abs(U[both] - res11.U.cpu().numpy()[both]).max())
+           if both.any() else None)
+    launches = {}
+    for d in ranks:
+        for k, v in d["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {
+        "ranks": len(ranks), "lanes": [int(d["status"].shape[0])
+                                       for d in ranks],
+        "reduced_n_converged": [int(d["n_converged"]) for d in ranks],
+        "reduced_max_err": [float(d["max_err"]) for d in ranks],
+        "rank_max_err": [float(d["err"].max()) for d in ranks],
+        "union_converged": int(ok.sum()),
+        "phase11_converged": int(ok11.sum()),
+        "converged_in_both": int(both.sum()),
+        "max_abs_dU_vs_phase11": gap,
+        "iters_equal_phase11": bool(np.array_equal(
+            np.concatenate([d["iters"] for d in ranks]),
+            res11.iters.cpu().numpy())),
+        "launches": launches,
+    }
+
+
+def check_shard_workers(out):
+    """Phase 11p's gates."""
+    if set(out["reduced_n_converged"]) != {out["union_converged"]}:
+        raise RuntimeError(f"shard workers: reduced n_converged "
+                           f"{out['reduced_n_converged']} is not the union's "
+                           f"{out['union_converged']}")
+    if set(out["reduced_max_err"]) != {max(out["rank_max_err"])}:
+        raise RuntimeError(f"shard workers: reduced max_err "
+                           f"{out['reduced_max_err']} is not the larger "
+                           f"rank's {max(out['rank_max_err'])}")
+    least = out["phase11_converged"] - SHARD_COUNT_SLACK
+    if out["union_converged"] < least:
+        raise RuntimeError(f"shard workers: {out['union_converged']} lanes "
+                           f"converged, fewer than {least}")
+    gap = out["max_abs_dU_vs_phase11"]
+    if gap is None or not gap <= PARITY_TOL:
+        raise RuntimeError(f"shard workers: U is {gap} from phase 11 on the "
+                           f"lanes converged in both")
+    require_route("shard workers", out["launches"], "bwd_matvec_se",
+                  "bwd_se")
+
+
+def run_cyclic(bk, device, B=B_MAIN, nw=None, nc=None, sizes=CR_SIZES):
+    """Phase 12: ``obca_torch.tools.bench_cyclic`` at the main path's
+    width (nz = 56: nw = 31, nc = 25) over ``sizes``, counted.  Returns
+    (rows, verdict, launches)."""
+    from obca_torch import nlp, reverse_parking_spec
+    from obca_torch.tools import bench_cyclic
+
+    if nw is None:
+        L = nlp.layout_of(reverse_parking_spec(N=N_MAIN, Ts=TS_MAIN,
+                                               device="cpu"))
+        nw, nc = L.nw, L.nc
+    bk.reset_launches()
+    rows, verdict = bench_cyclic.main(nw, nc, B, sizes, device=device)
+    return rows, verdict, dict(bk.launches)
+
+
+def check_cyclic(rows, launches):
+    """Phase 12's gates."""
+    for r in rows:
+        if not (r["finite"] and r["rel_diff_f64"] <= CR_TOL_F64
+                and r["rel_diff_f32"] <= SYNTH_TOL):
+            raise RuntimeError(f"cyclic reduction disagrees: {r}")
+    for name in ("factor_dense", "fwd_dense", "bwd_dense"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by the "
+                               f"cyclic bench")
+
+
+def run_debug(device, n_iter=DEBUG_ITERS):
+    """Phase 13: ``ipm.debug_iterate`` on the golden
+    ``reverse_parking_N80`` warm start at B=1 under
+    ``f32_solver_config()`` for ``n_iter`` iterations (its lines
+    collected), the debug step's diagnostics of the same iterations, and
+    ``n_iter`` plain steps of the same ``_make_step``.  Returns (summary,
+    the printed lines)."""
+    import torch
+    import obca_torch as ot
+    from obca_torch import spec as tspec
+    from obca_torch.solver import ipm
+
+    gold = np.load(os.path.join(ROOT, "oracle", "goldens",
+                                "reverse_parking_N80.npz"))
+    cfg = ot.f32_solver_config()
+    spec = ot.reverse_parking_spec(N=int(gold["N"]), Ts=float(gold["Ts"]),
+                                   dtype=cfg.dtype, device=device)
+    W0 = torch.as_tensor(gold["W0"], dtype=cfg.dtype, device=device)
+    lines = []
+    t0 = time.perf_counter()
+    state = ipm.debug_iterate(spec, cfg, W0, n_iter=n_iter,
+                              printer=lines.append)
+    _sync(device)
+    wall = time.perf_counter() - t0
+
+    def steps(debug):
+        with torch.no_grad():
+            st, step, _, _ = ipm._make_step(tspec.stack([spec]), cfg,
+                                            W0[None], debug=debug)
+            diags = []
+            for _ in range(n_iter):
+                out = step(st)
+                st, d = out if debug else (out, None)
+                diags.append(d)
+        return st, diags
+
+    plain, _ = steps(False)
+    _, diags = steps(True)
+    # Every diagnostic, the per-group dicts' values included.
+    values = [x for d in diags for v in d.values()
+              for x in (v.values() if isinstance(v, dict) else [v])]
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in values)
+    W = state.W.double()
+    rel = float((W - plain.W[0].double()).abs().max() / W.abs().max())
+    return {
+        "iterations": n_iter, "lines": len(lines), "wall_s": wall,
+        "rel_diff_vs_plain": rel,
+        "bitwise": bool(torch.equal(state.W, plain.W[0])),
+        "diag_values": len(values), "diag_finite": finite,
+        "linres": [float(d["linres"][0]) for d in diags],
+    }, lines
+
+
+def check_debug(out):
+    """Phase 13's gates."""
+    if not out["rel_diff_vs_plain"] <= DEBUG_TOL:
+        raise RuntimeError(f"debug_iterate is {out['rel_diff_vs_plain']:.3e}"
+                           f" from the plain steps")
+    if not out["diag_finite"] or out["lines"] != 2 * out["iterations"]:
+        raise RuntimeError(f"debug_iterate: {out}")
+
+
 class PhaseClock:
     """Prints the seconds of each phase as it ends."""
 
@@ -1188,6 +1564,7 @@ def main():
     from obca_torch.solver.kernels import blocktri_se as bk
     from obca_torch.solver.kernels import build
     from obca_torch.tools import kernel_bench as kb
+    from obca_torch.warmstart import geometric, lattice
 
     device = torch.device("cuda", 0)
     clock = PhaseClock()
@@ -1481,6 +1858,49 @@ def main():
           f"iters {g_iters}")
     check_nav(nav_out, int(res_nav.status[0]))
     clock.lap("10")
+
+    # 11. The f32 main path sharded over a one-rank NCCL group: phase 4's
+    # batch from its lattice warm starts, solve_sharded beside
+    # solve_batch.
+    lcfg = lattice.LatticeConfig.for_spec(base)
+    W0_sh = geometric.lattice_warm_start(
+        specs, dtype=base.x0.dtype, cfg=lcfg,
+        field=lattice.plan_field(base, lcfg))
+    sharded, res_sh = run_sharded(bk, specs, W0_sh,
+                                  f32_solver_config(max_iter=ITERS_MAIN))
+    print("sharded " + json.dumps(sharded))
+    print(f"sharded max |dU| vs solve_batch {sharded['max_abs_dU']:.3e} "
+          f"bitwise {sharded['bitwise']}")
+    check_sharded(sharded)
+    for name, n in sharded["launches"].items():
+        launches[name] += n
+    clock.lap("11")
+
+    # 11p. Two ranks over gloo on this one card, each on its
+    # process_shard of exactly phase 11's inputs.
+    workers = summarize_shard_workers(
+        run_shard_workers(specs, W0_sh, ITERS_MAIN), res_sh)
+    print("shard_workers " + json.dumps(workers))
+    check_shard_workers(workers)
+    for name, n in workers["launches"].items():
+        launches[name] += n
+    clock.lap("11p")
+
+    # 12. Cyclic reduction against the dense kernels (f32) and the plain
+    # sequential blocktri (f64) at the main path's width, counted.
+    rows, verdict, cr_launches = run_cyclic(bk, device)
+    check_cyclic(rows, cr_launches)
+    for name, n in cr_launches.items():
+        launches[name] += n
+    clock.lap("12")
+
+    # 13. debug_iterate on the card.
+    dbg, lines = run_debug(device)
+    print(f"debug_iterate first line: {lines[0]}")
+    print(f"debug_iterate last line: {lines[-1]}")
+    print("debug_iterate " + json.dumps(dbg))
+    check_debug(dbg)
+    clock.lap("13")
 
     # 6. The kernels line, then the device line.
     kernels = []

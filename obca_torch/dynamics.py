@@ -37,3 +37,10 @@ def rollout(x0, U, tau, Ts, wheelbase):
     for k in range(U.shape[-2]):
         xs.append(step(xs[-1], U[..., k, :], tau, Ts, wheelbase))
     return torch.stack(xs, dim=-2)
+
+
+def dynamics_defects(X, U, tau, Ts, wheelbase):
+    """Defect residuals x_{k+1} - f(x_k, u_k) [..., N, 4] for X
+    [..., N+1, 4], U [..., N, 2]; tau / Ts / wheelbase broadcastable to
+    X[..., :-1, 0] (a per-lane scalar as [..., 1])."""
+    return X[..., 1:, :] - step(X[..., :-1, :], U, tau, Ts, wheelbase)

@@ -1,9 +1,9 @@
 """Polytope geometry: H-representations, rotations, SAT clearances and
 the host-side ego-obstacle distance.
 
-Port of the parts of ``obca_tpu.geometry`` that the solver and the
-warm-start planners use.  Tensor functions broadcast over leading pose
-axes; the exact distance functions are numpy ground truth for tests.
+Port of ``obca_tpu.geometry``.  Tensor functions broadcast over
+leading pose axes; the exact distance functions are numpy ground truth
+for tests.
 """
 
 from __future__ import annotations
@@ -34,6 +34,47 @@ def rotation(psi):
     c, s = torch.cos(psi), torch.sin(psi)
     return torch.stack(
         [torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2)
+
+
+def ego_vertices(state, ego_g):
+    """World-frame corners [..., 4, 2] of the ego rectangle at states
+    ``state`` [..., >=3] (X, Y, psi, ...); ``ego_g`` [..., 4] broadcasts
+    against the leading axes.  Body frame: x in [-rear, front], y in
+    [-half_w, half_w], anchored at the rear axle."""
+    front, rear, wl, wr = (ego_g[..., i] for i in range(4))
+    corners = torch.stack([
+        torch.stack([front, wl], -1), torch.stack([front, -wr], -1),
+        torch.stack([-rear, -wr], -1), torch.stack([-rear, wl], -1)], -2)
+    R = rotation(state[..., 2])
+    return corners @ R.transpose(-1, -2) + state[..., None, :2]
+
+
+def sat_gap(P_pts, P_axes, Q_pts, Q_axes):
+    """Separating-axis gap between convex polygons: the max over the
+    candidate axes of the projection gap.  Positive = separated by at
+    least that much; negative = overlapping on every axis.  It lower-
+    bounds the true clearance (vertex-vertex nearest features are
+    under-reported), the conservative direction for collision checks.
+
+    P_pts [..., p, 2], Q_pts [..., q, 2]; axes [..., a, 2] unit normals
+    of each.  Returns [...]."""
+    axes = torch.cat([P_axes, Q_axes], dim=-2)                 # [..., a, 2]
+    projP = P_pts @ axes.transpose(-1, -2)                     # [..., p, a]
+    projQ = Q_pts @ axes.transpose(-1, -2)
+    gap1 = projQ.amin(-2) - projP.amax(-2)
+    gap2 = projP.amin(-2) - projQ.amax(-2)
+    return torch.maximum(gap1, gap2).amax(-1)
+
+
+def ego_hrep_world(state, ego_g):
+    """Ego polytope in the world frame at ``state`` [..., >=3]: (Aw
+    [..., 4, 2], bw [..., 4]) with E(x) = {y : Aw y <= bw}, from
+    G R'(y - t) <= g."""
+    R = rotation(state[..., 2])
+    G = torch.as_tensor(EGO_G, dtype=state.dtype, device=state.device)
+    Aw = G @ R.transpose(-1, -2)
+    bw = ego_g + (Aw @ state[..., :2, None])[..., 0]
+    return Aw, bw
 
 
 def ego_clearance_exact(pose, ego_g, obstacles):
@@ -120,6 +161,21 @@ def ego_clearance_flat(px, py, h, ego_g, obstacles):
 # ---------------------------------------------------------------------------
 
 
+def point_polytope_distance(y, A, b, face_mask):
+    """Euclidean distance from point y [2] to {z : A z <= b} (0
+    inside)."""
+    y = np.asarray(y, float)
+    A_ = np.asarray(A, float)
+    b_ = np.asarray(b, float)
+    m = np.asarray(face_mask) > 0
+    if np.all(A_[m] @ y <= b_[m] + 1e-12):
+        return 0.0
+    verts = vertices_from_hrep(A_, b_, face_mask)
+    k = len(verts)
+    return float(min(_point_segment_distance(y, verts[i], verts[(i + 1) % k])
+                     for i in range(k)))
+
+
 def vertices_from_hrep(A, b, face_mask):
     """CCW vertices of an H-rep from `hrep_from_ccw_vertices` (vertex
     i is the intersection of faces i-1 and i)."""
@@ -166,6 +222,13 @@ def convex_polygon_distance(Pv, Qv):
                 best = min(best, _point_segment_distance(
                     p, V[i], V[(i + 1) % k]))
     return float(best)
+
+
+def polytope_polytope_distance(P_A, P_b, Q_A, Q_b, mask_P, mask_Q):
+    """Distance between convex polytopes {A p <= b} whose H-reps came
+    from ordered CCW vertex lists; 0 when they intersect."""
+    return convex_polygon_distance(vertices_from_hrep(P_A, P_b, mask_P),
+                                   vertices_from_hrep(Q_A, Q_b, mask_Q))
 
 
 def ego_obstacle_distance(state, ego_g, obs_A, obs_b, face_mask):

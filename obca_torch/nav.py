@@ -354,16 +354,33 @@ def coupling_values(L: NavLayout, spec):
     return nlp.coupling_values(L, spec)
 
 
-def assemble_kkt_structured(L: NavLayout, W, nu, sigma_w, sigma_c, rhs_w,
-                            rhs_c, spec, active, delta_w):
-    """(K [B, N+1, nz, nz], e_vals [B, N, nnz], rhs [B, N+1, nz]), the
-    constraint blocks by automatic differentiation; the dense coupling E
-    is never built."""
+def _assemble_k_rhs(L: NavLayout, W, nu, sigma_w, sigma_c, rhs_w, rhs_c,
+                    spec, active, delta_w):
+    """K [B, N+1, nz, nz] and rhs [B, N+1, nz], the constraint blocks by
+    automatic differentiation."""
     J, Hc = nlp.constraint_blocks(L, W, nu * active, spec,
                                   c_fn=stage_constraints_local)
     Hobj, _ = objective_stage_hessians(L, spec)
-    K, rhs = nlp.stage_kkt(L, J, Hc, Hobj, sigma_w, sigma_c, rhs_w, rhs_c,
-                           active, delta_w)
+    return nlp.stage_kkt(L, J, Hc, Hobj, sigma_w, sigma_c, rhs_w, rhs_c,
+                         active, delta_w)
+
+
+def assemble_kkt(L: NavLayout, W, nu, sigma_w, sigma_c, rhs_w, rhs_c, spec,
+                 active, delta_w):
+    """(K, E [B, N, nz, nz], rhs): the structure of
+    ``nlp.assemble_kkt`` with nav's constraint derivatives and the
+    parking problem's dense coupling."""
+    K, rhs = _assemble_k_rhs(L, W, nu, sigma_w, sigma_c, rhs_w, rhs_c, spec,
+                             active, delta_w)
+    return K, nlp.coupling_block(L, spec, active), rhs
+
+
+def assemble_kkt_structured(L: NavLayout, W, nu, sigma_w, sigma_c, rhs_w,
+                            rhs_c, spec, active, delta_w):
+    """(K [B, N+1, nz, nz], e_vals [B, N, nnz], rhs [B, N+1, nz]); the
+    dense coupling E is never built."""
+    K, rhs = _assemble_k_rhs(L, W, nu, sigma_w, sigma_c, rhs_w, rhs_c, spec,
+                             active, delta_w)
     return K, coupling_values(L, spec), rhs
 
 

@@ -132,15 +132,24 @@ def stage_constraints_local(L: Layout, w, aux, spec, k):
     ``k`` the stage index; the spec leaves, ``aux`` and ``k`` broadcast
     against w's leading axes (one stage: an unbatched spec and a 0-d k,
     the form :func:`constraint_blocks` differentiates)."""
-    return _stage_rows(L, _stage_vars(L, w), aux, spec, k)
+    return _stage_rows(L, unpack_w(L, w), aux, spec, k)
 
 
-def _stage_vars(L: Layout, w):
-    """The views (x, u, tau, lam, mu) of stages w [..., nw]."""
+def unpack_w(L: Layout, w):
+    """The views (x, u, tau, lam [..., M, V], mu [..., M, 4]) of stages
+    w [..., nw]."""
     lead = w.shape[:-1]
     return (w[..., L.sl_x], w[..., L.sl_u], w[..., L.i_tau],
             w[..., L.sl_lam].reshape(lead + (L.M, L.V)),
             w[..., L.sl_mu].reshape(lead + (L.M, 4)))
+
+
+def pack_w(L: Layout, x, u, tau, lam, mu):
+    """Stage vectors [..., nw] from their parts (the inverse of
+    :func:`unpack_w`)."""
+    lead = x.shape[:-1]
+    return torch.cat([x, u, tau[..., None], lam.reshape(lead + (L.M * L.V,)),
+                      mu.reshape(lead + (4 * L.M,))], dim=-1)
 
 
 def _stage_rows(L: Layout, stage_vars, aux, spec, k):
@@ -193,7 +202,7 @@ def all_constraints(L: Layout, W, spec):
     stage of W [B, N+1, nw] at once."""
     # The views of W before the aux's: autograd sums dW in the reverse
     # order of the views, and the float32 iterates follow that rounding.
-    stage_vars = _stage_vars(L, W)
+    stage_vars = unpack_w(L, W)
     return _stage_rows(L, stage_vars, stage_aux(L, W, spec), at_stages(spec),
                        torch.arange(L.N + 1, device=W.device))
 
@@ -267,6 +276,14 @@ def objective(L: Layout, W, spec):
     reg = (torch.sum(((lam - ref_lam) ** 2) * fmask[:, None], dim=(1, 2))
            + torch.sum(((mu - ref_mu) ** 2) * omask[:, None], dim=(1, 2)))
     return c_u + c_du + c_t + 0.5 * PIN_KAPPA * pin + 0.5 * spec.w_reg * reg
+
+
+def objective_gradient(L: Layout, W, spec):
+    """d objective / dW [B, N+1, nw] (autograd of the per-lane sum)."""
+    with torch.enable_grad():
+        Wv = W.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(objective(L, Wv, spec).sum(), Wv)
+    return g
 
 
 def total_lagrangian(L: Layout, W, nu, spec, active):
@@ -385,6 +402,19 @@ def coupling_structure(L: Layout):
         rows.append(iu[i])
         cols.append(iu[i])
     return np.asarray(rows), np.asarray(cols)
+
+
+def coupling_block(L: Layout, spec, active):
+    """The constant off-diagonal KKT blocks E_k = T[zeta_k, zeta_{k+1}]
+    as dense [B, N, nz, nz]: :func:`coupling_values` at
+    :func:`coupling_structure`'s positions (tests and the dense-coupling
+    solver; the hot path never builds it).  ``active`` is unused, as in
+    the JAX package."""
+    rows, cols = coupling_structure(L)
+    vals = coupling_values(L, spec)
+    E = vals.new_zeros(vals.shape[:2] + (L.nz, L.nz))
+    E[:, :, rows, cols] = vals
+    return E
 
 
 def coupling_values(L: Layout, spec):
@@ -626,15 +656,36 @@ def stage_kkt(L, J, Hc, Hobj, sigma_w, sigma_c, rhs_w, rhs_c, active,
     return K, rhs
 
 
+def _assemble_k_rhs(L: Layout, W, nu, sigma_w, sigma_c, rhs_w, rhs_c,
+                    spec, active, delta_w):
+    """Diagonal blocks K [B, N+1, nz, nz] and rhs [B, N+1, nz] (shared by
+    the dense and structured assemblers)."""
+    J, Hc = constraint_blocks_analytic(L, W, nu * active, spec)
+    Hobj, _ = objective_stage_hessians(L, spec)
+    return stage_kkt(L, J, Hc, Hobj, sigma_w, sigma_c, rhs_w, rhs_c, active,
+                     delta_w)
+
+
+def assemble_kkt(L: Layout, W, nu, sigma_w, sigma_c, rhs_w, rhs_c, spec,
+                 active, delta_w):
+    """The KKT blocks with the dense coupling: (K [B, N+1, nz, nz], E
+    [B, N, nz, nz], rhs [B, N+1, nz]).  W [B, N+1, nw] and nu
+    [B, N+1, nc] the iterate, sigma_w / sigma_c the barrier diagonals
+    (sigma_c negative: -delta_c on equalities, -(s/y) - delta_c on
+    inequalities, -1 on masked rows), rhs_w / rhs_c the negative dual
+    and primal residuals, ``delta_w`` the per-lane primal
+    regularization [B]."""
+    K, rhs = _assemble_k_rhs(L, W, nu, sigma_w, sigma_c, rhs_w, rhs_c, spec,
+                             active, delta_w)
+    return K, coupling_block(L, spec, active), rhs
+
+
 def assemble_kkt_structured(L: Layout, W, nu, sigma_w, sigma_c, rhs_w,
                             rhs_c, spec, active, delta_w):
     """Hot-path KKT assembly: (K [B, N+1, nz, nz], e_vals [B, N, nnz],
-    rhs [B, N+1, nz]); the dense coupling E is never built.  ``delta_w``
-    is the per-lane primal regularization [B]."""
-    J, Hc = constraint_blocks_analytic(L, W, nu * active, spec)
-    Hobj, _ = objective_stage_hessians(L, spec)
-    K, rhs = stage_kkt(L, J, Hc, Hobj, sigma_w, sigma_c, rhs_w, rhs_c,
-                       active, delta_w)
+    rhs [B, N+1, nz]); the dense coupling E is never built."""
+    K, rhs = _assemble_k_rhs(L, W, nu, sigma_w, sigma_c, rhs_w, rhs_c, spec,
+                             active, delta_w)
     return K, coupling_values(L, spec), rhs
 
 

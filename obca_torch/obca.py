@@ -40,6 +40,13 @@ def obca_terms(x, lam, mu, obs_A, obs_b, ego_g):
     return eq, dist, norm_sq
 
 
+def dual_distance(x, lam, mu, obs_A, obs_b, ego_g):
+    """The dual objective -g'mu + lam'(A t - b) per obstacle [..., M]
+    (dist(E(x), O_m) at the optimal feasible duals)."""
+    _, dist, _ = obca_terms(x, lam, mu, obs_A, obs_b, ego_g)
+    return dist
+
+
 def point_obca_terms(p, lam, obs_A, obs_b):
     """Point-mass variant (the navigation family): dist(p, O_m) >= d_min
     <=> exists lam_m >= 0 with (A_m p - b_m)' lam_m >= d_min and

@@ -189,3 +189,42 @@ def solve_gcr(K, E, fac: BlockTriFactor, r, m: int = 8,
 
     x, lin = gcr(step, r, m, rd)
     return x.to(r.dtype), lin
+
+
+def solve_refined(K, E, fac: BlockTriFactor, r, iters: int = 1,
+                  residual_dtype=None):
+    """Solve with ``iters`` steps of damped iterative refinement after
+    the first solve: residuals in ``residual_dtype`` (default r.dtype),
+    correction solves in the factor's dtype, the solution in r.dtype.
+    Each correction is scaled per lane by the omega that minimizes
+    ||res - omega T dx||, so the residual cannot grow even where the
+    factor is a poor preconditioner."""
+    rd = residual_dtype or r.dtype
+    fd = fac.Sinv.dtype
+    Krd, Erd, rrd = K.to(rd), E.to(rd), r.to(rd)
+    tiny = torch.finfo(rd).tiny
+    x = torch.zeros_like(r)
+    for _ in range(iters + 1):
+        res = rrd - matvec(Krd, Erd, x.to(rd))
+        dx = solve(fac, res.to(fd)).to(rd)
+        Tdx = matvec(Krd, Erd, dx)
+        den = torch.sum(Tdx * Tdx, dim=(1, 2), keepdim=True)
+        omega = torch.where(
+            den > 0, torch.sum(res * Tdx, dim=(1, 2), keepdim=True)
+            / torch.clamp(den, min=tiny), torch.zeros_like(den))
+        x = x + (omega * dx).to(x.dtype)
+    return x
+
+
+def dense_from_blocks(K, E):
+    """The dense matrices [B, S*nz, S*nz] of the block-tridiagonal
+    systems (tests and small debugging only)."""
+    B, S, nz, _ = K.shape
+    T = K.new_zeros((B, S * nz, S * nz))
+    for k in range(S):
+        T[:, k * nz:(k + 1) * nz, k * nz:(k + 1) * nz] = K[:, k]
+    for k in range(S - 1):
+        T[:, k * nz:(k + 1) * nz, (k + 1) * nz:(k + 2) * nz] = E[:, k]
+        T[:, (k + 1) * nz:(k + 2) * nz, k * nz:(k + 1) * nz] = \
+            E[:, k].transpose(-1, -2)
+    return T

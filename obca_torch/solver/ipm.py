@@ -25,7 +25,7 @@ import torch
 
 from obca_torch import nlp
 from obca_torch import spec as spec_mod
-from obca_torch.solver import kkt
+from obca_torch.solver import blocktri, kkt
 
 STATUS_CONVERGED = 0
 STATUS_RUNNING = 1
@@ -101,6 +101,12 @@ def _masks_and_bounds(L, spec, prob=nlp):
             has_lo[:, None], has_hi[:, None])
 
 
+def default_init(spec, dtype=None, prob=nlp):
+    """The problem family's cold-start warm start W [B, N+1, nw] (what a
+    solve without W0 begins from)."""
+    return prob.default_init(spec, dtype=dtype)
+
+
 def _merit(L, W, s, spec, mu, rho, eq_row, in_row, lo, hi, has_lo, has_hi,
            prob=nlp):
     """Per-lane barrier merit [B] (inf outside the strict interior)."""
@@ -165,7 +171,7 @@ def cold_dual_state(spec, cfg, W0, prob=nlp) -> DualState:
 
 
 def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
-               prob=nlp):
+               prob=nlp, debug: bool = False):
     """Build (initial state, step, layout, final_check) for a batch.
 
     ``spec`` leaves carry a leading B; W0 [B, N+1, nw] (None: cold
@@ -176,6 +182,10 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
     ``bound_arrays``, ``all_constraints``, ``objective``,
     ``total_lagrangian``, ``assemble_kkt_structured``,
     ``coupling_structure``, ``default_init``).
+
+    With ``debug`` the step returns (state, diag): per-lane [B]
+    diagnostics with the JAX package's keys, which only read the step's
+    values, so the state is the same bit for bit.
     """
     L = prob.layout_of(spec)
     e_rows, e_cols = prob.coupling_structure(L)
@@ -204,7 +214,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
     step_max = float(cfg.step_max)
 
     if W0 is None:
-        W0 = prob.default_init(spec, dt)
+        W0 = default_init(spec, dt, prob)
     W0 = W0.to(dt)
     # Anchor the proximal dual regularization at the warm-start duals.
     spec = dataclasses.replace(
@@ -272,6 +282,12 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
 
     n_nu = (L.N + 1) * nc
     n_z = (L.N + 1) * nw
+    # The constraint groups the debug diagnostics split.
+    groups = dict(bc=L.r_bc, dyn=L.r_dyn,
+                  tau=slice(L.i_taulink, L.i_taulink + 1), nrm=L.r_norm,
+                  dst=L.r_dist, rate=L.r_rate)
+    if hasattr(L, "r_obca_eq"):
+        groups["oeq"] = L.r_obca_eq
 
     def kkt_error_pieces(gl, c, W, nu, s, zL, zU, mu):
         mu = mu[:, None, None]
@@ -523,7 +539,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
                         torch.clamp(dw * 10.0 + 1e-8, max=1e2), dw))
         delta_w_n = torch.where(conv, dw, delta_w_n)
 
-        return IpmState(
+        new_state = IpmState(
             W=sel(W_n, W), nu=sel(nu_n, nu), s=sel(s_n, s),
             zL=sel(zL_n, zL), zU=sel(zU_n, zU),
             mu=torch.where(conv, state.mu, mu), delta_w=delta_w_n,
@@ -531,6 +547,28 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
             iters=state.iters + (~conv).to(torch.int32),
             err=err0,
         )
+        if not debug:
+            return new_state
+        # Diagnostics, per lane [B], from the values above (read only):
+        # the linear residual of the unscaled system with E built from
+        # the coupling values, the step's tests and lengths, residual
+        # and multiplier maxima, and those maxima per constraint group.
+        E_dbg = K.new_zeros((B, L.N, L.nz, L.nz))
+        E_dbg[:, :, rows_t, cols_t] = ev
+        r_abs = torch.abs(c) * eq_row + torch.abs(c - s) * in_row
+        return new_state, dict(
+            linres=_amax(torch.abs(blocktri.matvec(K, E_dbg, d) - rhs)),
+            take_full=take_full, take_soc=use_soc, err_mu=err_mu,
+            err0=err0, mu=mu, a_pri=a_pri, a_z=a_z, alpha=alpha,
+            found=found, finite=finite, delta_w=dw,
+            r_w=_amax(torch.abs(gl - zL + zU)), r_pri=_amax(r_abs),
+            max_nu=_amax(torch.abs(nu)), dW=_amax(torch.abs(dW)),
+            dnu=_amax(torch.abs(dnu)), phi0=phi0,
+            dnu_g={g: _amax(torch.abs(dnu[..., sl]))
+                   for g, sl in groups.items()},
+            nu_g={g: _amax(torch.abs(nu[..., sl]))
+                  for g, sl in groups.items()},
+            rp_g={g: _amax(r_abs[..., sl]) for g, sl in groups.items()})
 
     def final_check(state: IpmState) -> IpmState:
         """The in-step convergence test lags one iteration; re-test the
@@ -582,6 +620,51 @@ def solve_single(spec, cfg, W0=None, duals0: DualState | None = None,
     res = _run(specs, cfg, None if W0 is None else W0[None], d0, prob)
     return SolveResult(*[
         spec_mod.map_tensors(lambda t: t[0], f) for f in res])
+
+
+def debug_iterate(spec, cfg, W0=None, n_iter: int = 30, printer=print,
+                  prob=nlp, duals0: DualState | None = None):
+    """Host-side iteration loop with per-iteration diagnostics for one
+    instance (unbatched spec, W0 [N+1, nw]): up to ``n_iter`` steps of
+    the debug step, two lines each through ``printer`` (the JAX
+    package's), stopping at convergence.  Returns the final state
+    without a batch axis."""
+    specs = spec_mod.stack([spec])
+    d0 = None if duals0 is None else spec_mod.map_tensors(
+        lambda t: t[None], duals0)
+    with torch.no_grad():
+        state, step, _L, _final_check = _make_step(
+            specs, cfg, None if W0 is None else W0[None], d0, prob,
+            debug=True)
+        for i in range(n_iter):
+            state, diag = step(state)
+            printer(
+                f"it {i:3d} mu={float(diag['mu']):.2e} "
+                f"err_mu={float(diag['err_mu']):.2e} "
+                f"err0={float(diag['err0']):.2e} "
+                f"rw={float(diag['r_w']):.2e} "
+                f"rp={float(diag['r_pri']):.2e} "
+                f"a={float(diag['alpha']):.2e}/{float(diag['a_pri']):.2e} "
+                f"found={bool(diag['found'])} fin={bool(diag['finite'])} "
+                f"dw={float(diag['delta_w']):.1e} "
+                f"|dW|={float(diag['dW']):.1e} "
+                f"|nu|={float(diag['max_nu']):.1e}"
+                f" lin={float(diag['linres']):.1e}"
+                f" full={int(diag['take_full'])} "
+                f"soc={int(diag['take_soc'])}")
+            # Groups in name order, as the JAX package's jitted step
+            # returns its dicts.
+            printer(
+                "      dnu: " + " ".join(
+                    f"{g}={float(v):.1e}"
+                    for g, v in sorted(diag["dnu_g"].items()))
+                + " | rp: " + " ".join(
+                    f"{g}={float(v):.1e}"
+                    for g, v in sorted(diag["rp_g"].items())))
+            if bool(state.converged):
+                printer("converged")
+                break
+    return IpmState(*[t[0] for t in state])
 
 
 def solve_batch(specs, cfg, W0=None, prob=nlp,

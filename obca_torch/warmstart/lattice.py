@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from obca_torch import geometry
+from obca_torch import spec as spec_mod
 from obca_torch._util import linspace
 
 N_TAIL = 16
@@ -398,3 +399,12 @@ def extract(spec, field: PlanField, cfg: LatticeConfig = LatticeConfig()):
     seg_len = torch.cat([seg_len, tail_lens], dim=1)
     n_valid = (seg_len > 1e-9).sum(-1)
     return poses, dirs, seg_len, n_valid, reached
+
+
+def plan(spec, cfg: LatticeConfig | None = None):
+    """Coarse collision-free path from ``spec.x0`` to ``spec.xF`` of an
+    unbatched spec: :func:`plan_field` and :func:`extract` in one call,
+    the results without a batch axis."""
+    cfg = cfg or default_config(spec)
+    out = extract(spec_mod.stack([spec]), plan_field(spec, cfg), cfg)
+    return tuple(t[0] for t in out)

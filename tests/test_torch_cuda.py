@@ -448,3 +448,102 @@ def test_cuda_nav_float64_factor_refused(cuda):
     spec = nav.nav_spec(N=10, vertex_lists=NAV_VERTS, device=cuda)
     with pytest.raises(TypeError):
         nav.solve(spec, SolverConfig(max_iter=5))
+
+
+def _random_qd(rng, B, S, nw, nc):
+    """A batch of well-conditioned quasidefinite block-tridiagonal
+    systems (float64 numpy)."""
+    nz = nw + nc
+    R = rng.standard_normal((B, S, nw, nw))
+    A = R @ np.swapaxes(R, -1, -2) / nw + np.eye(nw)
+    Q = rng.standard_normal((B, S, nc, nc))
+    D = -(Q @ np.swapaxes(Q, -1, -2) / nc + np.eye(nc))
+    J = rng.standard_normal((B, S, nc, nw))
+    K = np.concatenate([np.concatenate([A, np.swapaxes(J, -1, -2)], -1),
+                        np.concatenate([J, D], -1)], -2)
+    E = 0.2 * np.sqrt(13.0 / nz) * rng.standard_normal((B, S - 1, nz, nz))
+    return K, E, rng.standard_normal((B, S, nz))
+
+
+@pytest.mark.gpu
+def test_cuda_cyclic_matches_plain(cuda):
+    """Cyclic reduction on the card: float64 within 1e-10 relative of
+    the plain sequential blocktri on the CPU, float32 within 1e-4 of the
+    dense kernels (which launch)."""
+    from obca_torch.solver import blocktri, cyclic
+
+    nw, nc = 7, 6
+    K, E, r = _random_qd(np.random.default_rng(5), 4, 33, nw, nc)
+    Kc, Ec, rc = (torch.tensor(a, device=cuda) for a in (K, E, r))
+    x = cyclic.solve(cyclic.factor(Kc, Ec, nw), rc).cpu()
+    Kh, Eh, rh = (torch.tensor(a) for a in (K, E, r))
+    x_ref = blocktri.solve(blocktri.factor(Kh, Eh, nw), rh)
+    assert float((x - x_ref).abs().max() / x_ref.abs().max()) <= 1e-10
+    K32, E32, r32 = (t.float().contiguous() for t in (Kc, Ec, rc))
+    x32 = cyclic.solve(cyclic.factor(K32, E32, nw), r32)
+    before = dict(bk.launches)
+    Sinv, W = bd.factor_dense(K32, E32)
+    xd = bd.solve_dense(Sinv, W, E32, r32)
+    torch.cuda.synchronize()
+    assert float((x32 - xd).abs().max() / xd.abs().max()) <= 1e-4
+    for name in ("factor_dense", "fwd_dense", "bwd_dense"):
+        assert bk.launches[name] == before[name] + 1
+
+
+@pytest.mark.gpu
+def test_cuda_solve_sharded_world_of_one(cuda):
+    """solve_sharded over a one-rank NCCL group equals solve_batch on the
+    same card bit for bit, and its all-reduced metrics are the local
+    ones."""
+    import dataclasses
+    import socket
+
+    from obca_torch import f32_solver_config, reverse_parking_spec
+    from obca_torch import spec as tspec
+    from obca_torch.parallel import distributed
+    from obca_torch.parallel import mesh as mesh_mod
+    from obca_torch.solver import ipm
+    from obca_torch.warmstart import geometric
+
+    base = reverse_parking_spec(N=20, Ts=1.2, dtype=torch.float32,
+                                device=cuda)
+    specs = tspec.stack([dataclasses.replace(base, x0=base.x0 + torch.tensor(
+        [s, 0.0, 0.0, 0.0], device=cuda)) for s in (-0.1, 0.0, 0.1, 0.2)])
+    W0 = geometric.lattice_warm_start(specs, dtype=torch.float32)
+    cfg = f32_solver_config(max_iter=55)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(f"localhost:{port}", num_processes=1,
+                           process_id=0, local_device_ids=[0],
+                           backend="nccl")
+    try:
+        res, met = mesh_mod.solve_sharded(
+            specs, cfg, distributed.global_scenario_mesh(), W0)
+    finally:
+        torch.distributed.destroy_process_group()
+    ref = ipm.solve_batch(specs, cfg, W0)
+    assert torch.equal(res.U, ref.U) and torch.equal(res.iters, ref.iters)
+    assert int(met["n_converged"]) == int(
+        (ref.status == ipm.STATUS_CONVERGED).sum())
+    assert float(met["max_err"]) == float(ref.err.max())
+
+
+def test_mesh_and_nccl_refuse_without_a_gpu():
+    """The default mesh takes every local card; without one it raises, and
+    so does a NCCL process group: nothing falls back to the CPU."""
+    from obca_torch.parallel import distributed
+    from obca_torch.parallel import mesh as mesh_mod
+
+    if torch.cuda.is_available():
+        mesh = mesh_mod.scenario_mesh()
+        assert [d.type for d in mesh.devices] == \
+            ["cuda"] * torch.cuda.device_count()
+        return
+    with pytest.raises(RuntimeError, match="no GPU"):
+        mesh_mod.scenario_mesh()
+    with pytest.raises(RuntimeError, match="GPU"):
+        distributed.initialize("localhost:1", num_processes=1, process_id=0,
+                               backend="nccl")
+    with pytest.raises(RuntimeError, match="GPU"):
+        distributed.initialize("localhost:1", num_processes=1, process_id=0)
