@@ -40,9 +40,9 @@ non-zero, and no result line is printed):
    ``ipm.solve_batch_rescued`` under ``f32_solver_config(max_iter=55)``
    (rescue mu 1e-5) — one warm-up run, then one timed run between
    which every kernel's launch count is reset and read (its three
-   kernels must have launched), two more timed runs for the spread, and
-   one under torch.profiler for the device's busy share and the kernels
-   that take its time;
+   kernels must have launched), and two more timed runs for the spread
+   (the device's busy share and the kernels that take its time: the
+   benchmark's ``reverse_sweep_b128`` cell with ``--trace 1``);
 5. parity: the golden warm start of
    ``oracle/goldens/reverse_parking_N80.npz`` solved at B=1 under
    ``f32_solver_config()``; max |U - U_gold| must be < 1e-3;
@@ -95,8 +95,13 @@ non-zero, and no result line is printed):
    time a single vehicle sees and its steady slope (no gate); the
    ``factor_se``, ``fwd_se`` and ``bwd_matvec_se`` kernels against their
    plain versions (within 1e-4 relative) on a system of its period-2
-   re-solve, captured in the warm-up run; then its first 4 closed-loop
-   periods (``mpc.run`` from its initial plan) under torch.profiler;
+   re-solve, captured in the warm-up run (the device's share of a
+   period: the benchmark's ``reverse_mpc_b1`` cell with ``--trace 1``);
+   then the single-vehicle entry point: rollout 0's ``mpc.run`` from
+   its ``ipm.solve_single`` plan for 4 periods, counted (its three
+   kernels must have launched), against ``mpc.run_fleet`` at B = 1 from
+   the same warm start: the same plan and period statuses, and every
+   closed-loop state within 1e-3;
 10. the navigation family: 128 lanes of ``nav.nav_spec()`` (N=60, nz =
    44) on the grazing layout of ``tests/test_nav.py``, start y shifted
    by ``uniform(-0.4, 0.4)`` draws, ``ipm.solve_batch_rescued(...,
@@ -171,9 +176,10 @@ PARITY_TOL = 1e-3
 DENSE_TOL = 1e-3
 # Phase 9: bench/run_mpc.py's defaults (fleet, f32, N=80, Ts=0.3).
 B_MPC, MPC_SPREAD, ITERS_MPC = 128, 0.3, 70
-MPC_STEPS, MPC_STEPS_SHORT, MPC_PROFILE_STEPS = 30, 10, 4
+MPC_STEPS, MPC_STEPS_SHORT, MPC_RUN_STEPS = 30, 10, 4
 RESOLVE_MU, RESOLVE_ITERS, RESOLVE_TOL = 1e-4, 60, 1e-3
 MPC_MIN_STEP_CONV = 0.90
+MPC_RUN_TOL = 1e-3
 # Phase 10: the nav batch on tests/test_nav.py's grazing layout.
 NAV_VERTS = [
     [(-4.0, 0.5), (-2.0, 0.5), (-2.0, 5.0), (-4.0, 5.0)],
@@ -657,18 +663,15 @@ def measure_main_path(bk, base, specs, cfg):
     return main, cap
 
 
-def print_profile(label, run, wall_median=None):
+def print_profile(label, run, wall_median):
     """Profile ``run`` and print its device busy share of
-    ``wall_median`` (the unprofiled wall of the same work; None: of the
-    profiled run's own wall), the top kernels and the port's kernels.
-    Returns the profiled wall and the busy seconds."""
+    ``wall_median`` (the unprofiled wall of the same work), the top
+    kernels and the port's kernels."""
     p_wall, p_busy, p_top, p_ours = device_profile(run)
     if p_busy > 0:
-        ref, what = ((wall_median, "unprofiled median wall")
-                     if wall_median else (p_wall, "profiled wall"))
         print(f"profiled {label}: wall {p_wall:.3f} s, device busy "
-              f"{p_busy:.3f} s ({100 * p_busy / ref:.1f}% of the "
-              f"{what} {ref:.3f} s)")
+              f"{p_busy:.3f} s ({100 * p_busy / wall_median:.1f}% of the "
+              f"unprofiled median wall {wall_median:.3f} s)")
         for name, ms, calls in p_top:
             print(f"  device {ms:9.2f} ms  {calls:6d} calls  {name}")
         for name, (ms, calls) in p_ours.items():
@@ -677,7 +680,6 @@ def print_profile(label, run, wall_median=None):
     else:
         print(f"profiled {label}: device time not measured (the "
               "profiler recorded no CUDA kernels)")
-    return p_wall, p_busy
 
 
 def dense_vs_structured(bk, nw, rows, cols, K, ev, reg, rhs):
@@ -1046,38 +1048,51 @@ def measure_mpc_single(bk, base, specs, cfg, steps=MPC_STEPS,
     }, cap
 
 
-def profile_mpc_periods(base, specs, cfg, steps=MPC_PROFILE_STEPS):
-    """Rollout 0's first ``steps`` closed-loop periods alone under
-    torch.profiler: ``mpc.run`` from its initial plan (solved before the
-    trace, as ``run_fleet`` solves it at B = 1), with phase 9's re-solve
-    knobs.  Prints the device's busy share of those periods and their
-    iterations."""
+def check_mpc_run(bk, base, specs, cfg, steps=MPC_RUN_STEPS):
+    """Phase 9s's single-vehicle entry point: rollout 0's ``mpc.run``
+    from its ``ipm.solve_single`` plan (``res0``) for ``steps`` periods,
+    its launches counted, then ``mpc.run_fleet`` at B = 1 from the same
+    warm start.  Returns the summary; raises unless the plan and every
+    period ended with the fleet's status and every closed-loop state lies
+    within MPC_RUN_TOL of the fleet's."""
+    import torch
     from obca_torch import mpc
     from obca_torch import spec as tspec
     from obca_torch.solver import ipm
     from obca_torch.warmstart import geometric, lattice
 
+    one = tspec.take(specs, slice(0, 1))
     spec0 = tspec.take(specs, 0)
     lcfg = lattice.LatticeConfig.for_spec(base)
-    W0 = geometric.lattice_warm_start(
-        tspec.take(specs, slice(0, 1)), dtype=cfg.dtype, cfg=lcfg,
-        field=lattice.plan_field(base, lcfg))[0]
-    res0 = ipm.solve_single(spec0, cfg, W0)
-    out = {}
-
-    def periods():
-        out["res"] = mpc.run(spec0, cfg, steps, W0, res0=res0,
-                             resolve_mu=RESOLVE_MU,
-                             resolve_max_iter=RESOLVE_ITERS,
-                             resolve_tol=RESOLVE_TOL)
-
-    wall, busy = print_profile(
-        f"mpc single, closed-loop periods 1-{steps} (B = 1)", periods)
-    print(f"mpc single periods 1-{steps}: iterations "
-          f"{out['res'].iters.tolist()}, status "
-          f"{out['res'].status.tolist()}, "
-          f"{1e3 * wall / steps:.1f} ms a period profiled, device busy "
-          f"{'not measured' if busy <= 0 else f'{100 * busy / wall:.1f}%'}")
+    W0 = geometric.lattice_warm_start(one, dtype=cfg.dtype, cfg=lcfg,
+                                      field=lattice.plan_field(base, lcfg))
+    knobs = dict(resolve_mu=RESOLVE_MU, resolve_max_iter=RESOLVE_ITERS,
+                 resolve_tol=RESOLVE_TOL)
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    res0 = ipm.solve_single(spec0, cfg, W0[0])
+    res = mpc.run(spec0, cfg, steps, W0[0], res0=res0, **knobs)
+    _sync(base.x0.device)
+    wall = time.perf_counter() - t0
+    launches = dict(bk.launches)
+    fleet = mpc.run_fleet(one, cfg, steps, W0, **knobs)
+    gap = float((res.states - fleet.states[0]).abs().max())
+    out = {
+        "steps": steps, "wall_s": wall, "status0": int(res.status0),
+        "iters0": int(res.iters0), "status": res.status.tolist(),
+        "iters": res.iters.tolist(),
+        "fleet_status0": int(fleet.status0[0]),
+        "fleet_iters0": int(fleet.iters0[0]),
+        "fleet_status": fleet.status[0].tolist(),
+        "fleet_iters": fleet.iters[0].tolist(),
+        "max_state_gap": gap, "launches": launches,
+    }
+    if (out["status0"] != out["fleet_status0"]
+            or out["status"] != out["fleet_status"]
+            or not gap < MPC_RUN_TOL or not torch.isfinite(res.states).all()):
+        raise RuntimeError(f"mpc.run disagrees with run_fleet at B = 1: "
+                           f"{out}")
+    return out
 
 
 def compare_captured(bk, label, system, rhs, device, route):
@@ -1665,8 +1680,6 @@ def main():
     print(f"main path: kernels ~{kernel_s:.3f} s of "
           f"{main_f32['wall_s']:.3f} s wall (launches x synthetic median "
           f"time)")
-    print_profile("main path", lambda: run_main_path(base, specs, cfg),
-                  statistics.median(main_f32["wall_s_runs"]))
     clock.lap("4")
 
     # 3c. Kernels against their plain versions: the main path's real
@@ -1826,9 +1839,11 @@ def main():
         launches[name] += n
     compare_captured(bk, "mpc single re-solve", cap_mpc.last_system,
                      cap_mpc.last_rhs, device, F32_ROUTE)
-    # Reading a trace back costs about half a second per solver
-    # iteration, so only a few closed-loop periods are traced.
-    profile_mpc_periods(base_mpc, specs_mpc, cfg_mpc)
+    run_one = check_mpc_run(bk, base_mpc, specs_mpc, cfg_mpc)
+    print("mpc_run " + json.dumps(run_one))
+    require_route("mpc run", run_one["launches"], "bwd_matvec_se", "bwd_se")
+    for name, n in run_one["launches"].items():
+        launches[name] += n
     clock.lap("9s")
 
     # 10. Point-mass navigation at full width, mixed precision.

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from obca_torch import dynamics, nlp
+from obca_torch import dynamics, nlp, trace
 from obca_torch import spec as spec_mod
 from obca_torch.solver import ipm
 
@@ -133,30 +133,31 @@ def _closed_loop(specs, cfg, n_steps, W0, res0, disturbance, cfg_warm):
     u_prev = specs.u_prev.to(dt)
     xs, us, status, iters, errs = [x], [], [], [], []
     for t in range(n_steps):
-        # The stage-0 rate rows reference the control applied in the
-        # previous period.
-        spec_t = dataclasses.replace(
-            specs, x0=x.to(specs.x0.dtype),
-            u_prev=u_prev.to(specs.u_prev.dtype))
-        # Re-anchor the shifted warm start's first state at the measured
-        # state.
-        W_ws = W_plan.clone()
-        W_ws[:, 0, L.sl_x] = x
-        res = ipm.solve_batch(spec_t, cfg_warm, W_ws, duals0=duals)
-        ok = res.status == ipm.STATUS_CONVERGED
-        # Failure fallback: the stale plan's control for this period.
-        u0 = torch.where(ok[:, None], res.U[:, 0], W_plan[:, 0, L.sl_u])
-        x = dynamics.step(x, u0, res.tau, specs.Ts,
-                          specs.wheelbase) + disturbance[:, t]
-        # Shift whichever plan was executed.
-        W_plan = shift_plan(_select(ok, res.W, W_plan), L)
-        duals = shift_dual_state(_select(ok, res.duals, duals), L)
-        u_prev = u0
-        xs.append(x)
-        us.append(u0)
-        status.append(res.status)
-        iters.append(res.iters)
-        errs.append(res.err)
+        with trace.span("mpc.period"):
+            # The stage-0 rate rows reference the control applied in the
+            # previous period.
+            spec_t = dataclasses.replace(
+                specs, x0=x.to(specs.x0.dtype),
+                u_prev=u_prev.to(specs.u_prev.dtype))
+            # Re-anchor the shifted warm start's first state at the
+            # measured state.
+            W_ws = W_plan.clone()
+            W_ws[:, 0, L.sl_x] = x
+            res = ipm.solve_batch(spec_t, cfg_warm, W_ws, duals0=duals)
+            ok = res.status == ipm.STATUS_CONVERGED
+            # Failure fallback: the stale plan's control for this period.
+            u0 = torch.where(ok[:, None], res.U[:, 0], W_plan[:, 0, L.sl_u])
+            x = dynamics.step(x, u0, res.tau, specs.Ts,
+                              specs.wheelbase) + disturbance[:, t]
+            # Shift whichever plan was executed.
+            W_plan = shift_plan(_select(ok, res.W, W_plan), L)
+            duals = shift_dual_state(_select(ok, res.duals, duals), L)
+            u_prev = u0
+            xs.append(x)
+            us.append(u0)
+            status.append(res.status)
+            iters.append(res.iters)
+            errs.append(res.err)
     return MpcResult(
         states=torch.stack(xs, dim=1), controls=torch.stack(us, dim=1),
         status=torch.stack(status, dim=1), iters=torch.stack(iters, dim=1),
@@ -186,7 +187,8 @@ def run(spec, cfg, n_steps: int, W0=None, duals0=None, disturbance=None,
         W0 = geometric.lattice_warm_start(spec)
     W0 = W0.to(cfg.dtype)
     if res0 is None:
-        res0 = ipm.solve_single(spec, cfg, W0, duals0=duals0)
+        with trace.span("mpc.plan"):
+            res0 = ipm.solve_single(spec, cfg, W0, duals0=duals0)
     out = _closed_loop(
         spec_mod.stack([spec]), cfg, n_steps, W0[None],
         ipm.SolveResult(*[spec_mod.map_tensors(lambda t: t[None], f)
@@ -206,7 +208,8 @@ def run_fleet(specs, cfg, n_steps: int, W0, disturbance=None,
     starts), then the batched closed loop.  W0 [B, N+1, nw] stacked warm
     starts; ``disturbance`` [B, n_steps, 4]; the results are [B, T] and
     the states [B, T+1, 4]."""
-    res0 = ipm.solve_batch_rescued(specs, cfg, W0)
+    with trace.span("mpc.plan"):
+        res0 = ipm.solve_batch_rescued(specs, cfg, W0)
     return _closed_loop(specs, cfg, n_steps, W0, res0, disturbance,
                         resolve_config(cfg, resolve_mu, resolve_max_iter,
                                        resolve_tol))

@@ -34,7 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from obca_torch import nlp, obca
+from obca_torch import nlp, obca, trace
 from obca_torch._util import linspace, one_hot
 from obca_torch.spec import Obstacles, obstacles_from_vertices
 
@@ -358,8 +358,9 @@ def _assemble_k_rhs(L: NavLayout, W, nu, sigma_w, sigma_c, rhs_w, rhs_c,
                     spec, active, delta_w):
     """K [B, N+1, nz, nz] and rhs [B, N+1, nz], the constraint blocks by
     automatic differentiation."""
-    J, Hc = nlp.constraint_blocks(L, W, nu * active, spec,
-                                  c_fn=stage_constraints_local)
+    with trace.span("nlp.constraint_blocks"):
+        J, Hc = nlp.constraint_blocks(L, W, nu * active, spec,
+                                      c_fn=stage_constraints_local)
     Hobj, _ = objective_stage_hessians(L, spec)
     return nlp.stage_kkt(L, J, Hc, Hobj, sigma_w, sigma_c, rhs_w, rhs_c,
                          active, delta_w)

@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from obca_torch import dynamics, obca
+from obca_torch import dynamics, obca, trace
 from obca_torch import spec as spec_mod
 from obca_torch.geometry import EGO_G
 
@@ -660,7 +660,8 @@ def _assemble_k_rhs(L: Layout, W, nu, sigma_w, sigma_c, rhs_w, rhs_c,
                     spec, active, delta_w):
     """Diagonal blocks K [B, N+1, nz, nz] and rhs [B, N+1, nz] (shared by
     the dense and structured assemblers)."""
-    J, Hc = constraint_blocks_analytic(L, W, nu * active, spec)
+    with trace.span("nlp.constraint_blocks"):
+        J, Hc = constraint_blocks_analytic(L, W, nu * active, spec)
     Hobj, _ = objective_stage_hessians(L, spec)
     return stage_kkt(L, J, Hc, Hobj, sigma_w, sigma_c, rhs_w, rhs_c, active,
                      delta_w)

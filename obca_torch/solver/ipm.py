@@ -13,6 +13,12 @@ lane whose own predicate ``~converged & iters < max_iter`` was false
 before the iteration keeps its state (exactly what ``while_loop`` does
 under ``vmap``).  The loop runs while any lane runs.
 
+Each phase of an iteration runs under a span of ``obca_torch.trace``
+named after the JAX package's scope (``ipm.residuals``, ``ipm.assemble``,
+``ipm.ruiz``, ``ipm.recover_ftb``, ``ipm.merit_ls``, ``ipm.soc``,
+``ipm.watchdog``, ``ipm.update``), inside ``ipm.iter`` and
+``ipm.solve``; ``ipm.sync`` marks each host read of a device value.
+
 Status codes: 0 = converged, 1 = running/max-iter, 2 = NaN-guarded.
 """
 
@@ -23,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from obca_torch import nlp
+from obca_torch import nlp, trace
 from obca_torch import spec as spec_mod
 from obca_torch.solver import blocktri, kkt
 
@@ -368,37 +374,40 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
     def step(state: IpmState) -> IpmState:
         W, nu, s, zL, zU, mu = (state.W, state.nu, state.s, state.zL,
                                 state.zU, state.mu)
-        y = torch.where(in_row > 0, -nu, one)
-
         # --- residuals, convergence test, barrier update ---
-        gl = grad_lag(W, nu)
-        c = prob.all_constraints(L, W, spec)
-        err0 = kkt_error_pieces(gl, c, W, nu, s, zL, zU, torch.zeros_like(mu))
-        err_mu = kkt_error_pieces(gl, c, W, nu, s, zL, zU, mu)
-        conv = (err0 <= tol) & (mu <= 10.0 * mu_min)
-        do_mu = (err_mu <= kappa_eps * mu) & (mu > mu_min) & ~conv
-        mu_new = torch.clamp(torch.minimum(mu_kappa * mu, mu ** mu_theta),
-                             min=mu_min)
-        mu = torch.where(do_mu, mu_new, mu)
-        mu_b = mu[:, None, None]
+        with trace.span("ipm.residuals"):
+            y = torch.where(in_row > 0, -nu, one)
+            gl = grad_lag(W, nu)
+            c = prob.all_constraints(L, W, spec)
+            err0 = kkt_error_pieces(gl, c, W, nu, s, zL, zU,
+                                    torch.zeros_like(mu))
+            err_mu = kkt_error_pieces(gl, c, W, nu, s, zL, zU, mu)
+            conv = (err0 <= tol) & (mu <= 10.0 * mu_min)
+            do_mu = (err_mu <= kappa_eps * mu) & (mu > mu_min) & ~conv
+            mu_new = torch.clamp(
+                torch.minimum(mu_kappa * mu, mu ** mu_theta), min=mu_min)
+            mu = torch.where(do_mu, mu_new, mu)
+            mu_b = mu[:, None, None]
 
         # --- assemble KKT ---
-        slo = torch.where(has_lo > 0, W - lo, one)
-        shi = torch.where(has_hi > 0, hi - W, one)
-        sigma_w = (torch.where(has_lo > 0, zL / slo, zero)
-                   + torch.where(has_hi > 0, zU / shi, zero))
-        sigma_c = (eq_row * (-delta_c) + in_row * (-(s / y) - delta_c)
-                   + (1.0 - active) * (-1.0))
-        rhs_w = (-gl + torch.where(has_lo > 0, mu_b / slo, zero)
-                 - torch.where(has_hi > 0, mu_b / shi, zero))
-        # Inactive rows solve -d_nu = nu (keeps their multipliers at 0).
-        rhs_c = (eq_row * (-c) + in_row * (-(c - mu_b / y))
-                 + (1.0 - active) * nu)
-        K, ev, rhs = prob.assemble_kkt_structured(
-            L, W, nu, sigma_w, sigma_c, rhs_w, rhs_c, spec, active,
-            state.delta_w)
-        ev = ev.to(dt)
-        K_s, ev_s, rhs_s, dsc = _ruiz(K, ev, rhs)
+        with trace.span("ipm.assemble"):
+            slo = torch.where(has_lo > 0, W - lo, one)
+            shi = torch.where(has_hi > 0, hi - W, one)
+            sigma_w = (torch.where(has_lo > 0, zL / slo, zero)
+                       + torch.where(has_hi > 0, zU / shi, zero))
+            sigma_c = (eq_row * (-delta_c) + in_row * (-(s / y) - delta_c)
+                       + (1.0 - active) * (-1.0))
+            rhs_w = (-gl + torch.where(has_lo > 0, mu_b / slo, zero)
+                     - torch.where(has_hi > 0, mu_b / shi, zero))
+            # Inactive rows solve -d_nu = nu (keeps their multipliers at 0).
+            rhs_c = (eq_row * (-c) + in_row * (-(c - mu_b / y))
+                     + (1.0 - active) * nu)
+            K, ev, rhs = prob.assemble_kkt_structured(
+                L, W, nu, sigma_w, sigma_c, rhs_w, rhs_c, spec, active,
+                state.delta_w)
+            ev = ev.to(dt)
+        with trace.span("ipm.ruiz"):
+            K_s, ev_s, rhs_s, dsc = _ruiz(K, ev, rhs)
 
         # Factor a +-delta_factor-regularized copy, refine against the
         # true scaled system; the dual block keeps a fixed -delta_factor.
@@ -415,138 +424,152 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
         dnu = d[..., nw:]
 
         # --- recover eliminated directions ---
-        dy = torch.where(in_row > 0, -dnu, zero)
-        ds = torch.where(in_row > 0, (mu_b - s * y) / y - (s / y) * dy, zero)
-        dzL = torch.where(has_lo > 0,
-                          (mu_b - slo * zL) / slo - (zL / slo) * dW, zero)
-        dzU = torch.where(has_hi > 0,
-                          (mu_b - shi * zU) / shi + (zU / shi) * dW, zero)
+        with trace.span("ipm.recover_ftb"):
+            dy = torch.where(in_row > 0, -dnu, zero)
+            ds = torch.where(in_row > 0, (mu_b - s * y) / y - (s / y) * dy,
+                             zero)
+            dzL = torch.where(has_lo > 0,
+                              (mu_b - slo * zL) / slo - (zL / slo) * dW, zero)
+            dzU = torch.where(has_hi > 0,
+                              (mu_b - shi * zU) / shi + (zU / shi) * dW, zero)
 
-        # --- fraction-to-boundary ---
-        tau_f = torch.clamp(1.0 - mu, min=tau_ftb)[:, None, None]
-        hl = has_lo.expand_as(slo)
-        hh = has_hi.expand_as(shi)
-        a_pri = torch.clamp(torch.minimum(
-            torch.minimum(ftb(s, ds, in_row, tau_f), ftb(y, dy, in_row, tau_f)),
-            torch.minimum(ftb(slo, dW, hl, tau_f), ftb(shi, -dW, hh, tau_f))),
-            max=1.0)
-        a_pri = torch.minimum(
-            a_pri, step_max / torch.clamp(_amax(torch.abs(dW)), min=1e-12))
-        a_z = torch.clamp(torch.minimum(
-            ftb(zL, dzL, has_lo.expand_as(zL), tau_f),
-            ftb(zU, dzU, has_hi.expand_as(zU), tau_f)), max=1.0)
+            # --- fraction-to-boundary ---
+            tau_f = torch.clamp(1.0 - mu, min=tau_ftb)[:, None, None]
+            hl = has_lo.expand_as(slo)
+            hh = has_hi.expand_as(shi)
+            a_pri = torch.clamp(torch.minimum(
+                torch.minimum(ftb(s, ds, in_row, tau_f),
+                              ftb(y, dy, in_row, tau_f)),
+                torch.minimum(ftb(slo, dW, hl, tau_f),
+                              ftb(shi, -dW, hh, tau_f))),
+                max=1.0)
+            a_pri = torch.minimum(
+                a_pri, step_max / torch.clamp(_amax(torch.abs(dW)), min=1e-12))
+            a_z = torch.clamp(torch.minimum(
+                ftb(zL, dzL, has_lo.expand_as(zL), tau_f),
+                ftb(zU, dzU, has_hi.expand_as(zU), tau_f)), max=1.0)
 
         # --- merit line search (all trial points in one batch) ---
-        rho = torch.clamp(2.0 * _amax(torch.abs(nu)), min=merit_rho)
-        phi0 = _merit(L, W, s, spec, mu, rho, eq_row, in_row, lo, hi,
-                      has_lo, has_hi, prob)
-        alphas = a_pri[:, None] * halves                        # [B, ls]
-        a4 = alphas[:, :, None, None]
-        W_try = (W[:, None] + a4 * dW[:, None]).reshape(
-            (B * n_ls,) + W.shape[1:])
-        s_try = torch.where(in_row[:, None] > 0, s[:, None] + a4 * ds[:, None],
-                            one).reshape((B * n_ls,) + s.shape[1:])
-        phis = _merit(L, W_try, s_try, spec_ls, _repeat(mu, n_ls),
-                      _repeat(rho, n_ls), *ls_masks, prob).reshape(B, n_ls)
-        ok = phis <= phi0[:, None] - 1e-8 * alphas * torch.abs(phi0)[:, None]
-        found = ok.any(dim=1)
-        first = ok.to(torch.int8).argmax(dim=1)
-        alpha = torch.where(found,
-                            alphas.gather(1, first[:, None])[:, 0],
-                            alphas[:, -1])
+        with trace.span("ipm.merit_ls"):
+            rho = torch.clamp(2.0 * _amax(torch.abs(nu)), min=merit_rho)
+            phi0 = _merit(L, W, s, spec, mu, rho, eq_row, in_row, lo, hi,
+                          has_lo, has_hi, prob)
+            alphas = a_pri[:, None] * halves                        # [B, ls]
+            a4 = alphas[:, :, None, None]
+            W_try = (W[:, None] + a4 * dW[:, None]).reshape(
+                (B * n_ls,) + W.shape[1:])
+            s_try = torch.where(in_row[:, None] > 0,
+                                s[:, None] + a4 * ds[:, None],
+                                one).reshape((B * n_ls,) + s.shape[1:])
+            phis = _merit(L, W_try, s_try, spec_ls, _repeat(mu, n_ls),
+                          _repeat(rho, n_ls), *ls_masks,
+                          prob).reshape(B, n_ls)
+            ok = phis <= (phi0[:, None]
+                          - 1e-8 * alphas * torch.abs(phi0)[:, None])
+            found = ok.any(dim=1)
+            first = ok.to(torch.int8).argmax(dim=1)
+            alpha = torch.where(found,
+                                alphas.gather(1, first[:, None])[:, 0],
+                                alphas[:, -1])
 
         # --- second-order correction ---
-        a_pri_b = a_pri[:, None, None]
-        W_full = W + a_pri_b * dW
-        s_full = torch.where(in_row > 0, s + a_pri_b * ds, one)
-        c_full = prob.all_constraints(L, W_full, spec)
-        if cfg.soc:
-            rhs_soc = torch.cat(
-                [torch.zeros_like(rhs_w),
-                 eq_row * (-c_full) + in_row * (-(c_full - s_full))], dim=-1)
-            d_soc, _ = kkt_soc(K_s, ev_s, reg, rhs_soc * dsc)
-            d_soc = d_soc * dsc
-            dW_soc = d_soc[..., :nw]
-            dy_soc = torch.where(in_row > 0, -d_soc[..., nw:], zero)
-            ds_soc = torch.where(in_row > 0, -(s / y) * dy_soc, zero)
-        else:
-            dW_soc = torch.zeros_like(W)
-            ds_soc = torch.zeros_like(s)
-        W_soc = W_full + dW_soc
-        s_soc = torch.where(in_row > 0, s_full + ds_soc, one)
-        soc_ok = (_all(torch.where(has_lo > 0, W_soc - lo, one) > 0)
-                  & _all(torch.where(has_hi > 0, hi - W_soc, one) > 0)
-                  & _all(torch.where(in_row > 0, s_soc, one) > 0))
-        phi_soc = _merit(L, W_soc, s_soc, spec, mu, rho, eq_row, in_row, lo,
-                         hi, has_lo, has_hi, prob)
-        take_soc = (soc_ok & (phi_soc <= phi0 - 1e-8 * torch.abs(phi0))
-                    & (alpha < a_pri) & cfg.soc)
+        with trace.span("ipm.soc"):
+            a_pri_b = a_pri[:, None, None]
+            W_full = W + a_pri_b * dW
+            s_full = torch.where(in_row > 0, s + a_pri_b * ds, one)
+            c_full = prob.all_constraints(L, W_full, spec)
+            if cfg.soc:
+                rhs_soc = torch.cat(
+                    [torch.zeros_like(rhs_w),
+                     eq_row * (-c_full) + in_row * (-(c_full - s_full))],
+                    dim=-1)
+                d_soc, _ = kkt_soc(K_s, ev_s, reg, rhs_soc * dsc)
+                d_soc = d_soc * dsc
+                dW_soc = d_soc[..., :nw]
+                dy_soc = torch.where(in_row > 0, -d_soc[..., nw:], zero)
+                ds_soc = torch.where(in_row > 0, -(s / y) * dy_soc, zero)
+            else:
+                dW_soc = torch.zeros_like(W)
+                ds_soc = torch.zeros_like(s)
+            W_soc = W_full + dW_soc
+            s_soc = torch.where(in_row > 0, s_full + ds_soc, one)
+            soc_ok = (_all(torch.where(has_lo > 0, W_soc - lo, one) > 0)
+                      & _all(torch.where(has_hi > 0, hi - W_soc, one) > 0)
+                      & _all(torch.where(in_row > 0, s_soc, one) > 0))
+            phi_soc = _merit(L, W_soc, s_soc, spec, mu, rho, eq_row, in_row,
+                             lo, hi, has_lo, has_hi, prob)
+            take_soc = (soc_ok & (phi_soc <= phi0 - 1e-8 * torch.abs(phi0))
+                        & (alpha < a_pri) & cfg.soc)
 
         # --- watchdog: take the full step if it cuts the KKT error ---
-        nu_full = nu + a_pri_b * dnu
-        gl_full = grad_lag(W_full, nu_full)
-        a_z_b = a_z[:, None, None]
-        err_full = kkt_error_pieces(
-            gl_full, c_full, W_full, nu_full, s_full,
-            torch.clamp(zL + a_z_b * dzL, min=0.0),
-            torch.clamp(zU + a_z_b * dzU, min=0.0), mu)
-        take_full = (err_full <= 0.99 * err_mu) & cfg.watchdog
+        with trace.span("ipm.watchdog"):
+            nu_full = nu + a_pri_b * dnu
+            gl_full = grad_lag(W_full, nu_full)
+            a_z_b = a_z[:, None, None]
+            err_full = kkt_error_pieces(
+                gl_full, c_full, W_full, nu_full, s_full,
+                torch.clamp(zL + a_z_b * dzL, min=0.0),
+                torch.clamp(zU + a_z_b * dzU, min=0.0), mu)
+            take_full = (err_full <= 0.99 * err_mu) & cfg.watchdog
 
         # --- update ---
-        use_soc = take_soc & ~take_full
-        alpha = torch.where(take_full, a_pri, alpha)
-        alpha = torch.where(use_soc, a_pri, alpha)
-        alpha_b = alpha[:, None, None]
-        W_n = torch.where(_lane(use_soc, W), W_soc, W + alpha_b * dW)
-        s_n = torch.where(_lane(use_soc, s), s_soc,
-                          torch.where(in_row > 0, s + alpha_b * ds, one))
-        nu_n = nu + alpha_b * dnu
-        zL_n = zL + a_z_b * dzL
-        zU_n = zU + a_z_b * dzU
-        # z-safeguard (Ipopt's kappa_Sigma reset).
-        slo_n = torch.where(has_lo > 0, W_n - lo, one)
-        shi_n = torch.where(has_hi > 0, hi - W_n, one)
-        kS = 1e10
-        zL_n = torch.minimum(torch.maximum(zL_n, mu_b / (kS * slo_n)),
-                             kS * mu_b / slo_n)
-        zU_n = torch.minimum(torch.maximum(zU_n, mu_b / (kS * shi_n)),
-                             kS * mu_b / shi_n)
-        zL_n = torch.where(has_lo > 0, zL_n, zero)
-        zU_n = torch.where(has_hi > 0, zU_n, zero)
+        with trace.span("ipm.update"):
+            use_soc = take_soc & ~take_full
+            alpha = torch.where(take_full, a_pri, alpha)
+            alpha = torch.where(use_soc, a_pri, alpha)
+            alpha_b = alpha[:, None, None]
+            W_n = torch.where(_lane(use_soc, W), W_soc, W + alpha_b * dW)
+            s_n = torch.where(_lane(use_soc, s), s_soc,
+                              torch.where(in_row > 0, s + alpha_b * ds, one))
+            nu_n = nu + alpha_b * dnu
+            zL_n = zL + a_z_b * dzL
+            zU_n = zU + a_z_b * dzU
+            # z-safeguard (Ipopt's kappa_Sigma reset).
+            slo_n = torch.where(has_lo > 0, W_n - lo, one)
+            shi_n = torch.where(has_hi > 0, hi - W_n, one)
+            kS = 1e10
+            zL_n = torch.minimum(torch.maximum(zL_n, mu_b / (kS * slo_n)),
+                                 kS * mu_b / slo_n)
+            zU_n = torch.minimum(torch.maximum(zU_n, mu_b / (kS * shi_n)),
+                                 kS * mu_b / shi_n)
+            zL_n = torch.where(has_lo > 0, zL_n, zero)
+            zU_n = torch.where(has_hi > 0, zU_n, zero)
 
-        finite = (_all(torch.isfinite(W_n)) & _all(torch.isfinite(nu_n))
-                  & _all(torch.isfinite(s_n)) & _all(torch.isfinite(zL_n))
-                  & _all(torch.isfinite(zU_n)))
-        if cfg.strict_steps:
-            accepted = found | take_full | use_soc
-        else:
-            accepted = torch.ones_like(found)
-        take = finite & good_solve & accepted & ~conv
+            finite = (_all(torch.isfinite(W_n)) & _all(torch.isfinite(nu_n))
+                      & _all(torch.isfinite(s_n)) & _all(torch.isfinite(zL_n))
+                      & _all(torch.isfinite(zU_n)))
+            if cfg.strict_steps:
+                accepted = found | take_full | use_soc
+            else:
+                accepted = torch.ones_like(found)
+            take = finite & good_solve & accepted & ~conv
 
-        def sel(a, b):
-            return torch.where(_lane(take, a), a, b)
+            def sel(a, b):
+                return torch.where(_lane(take, a), a, b)
 
-        # Inertia correction by observation: decay delta_w on healthy
-        # steps, bump it on NaN / failed search / crawl / boundary jam.
-        ratio = alpha / torch.clamp(a_pri, min=1e-12)
-        jam = a_pri < 3e-3
-        healthy = take & ~jam & (take_full | use_soc | (ratio >= 0.24))
-        crawl = take & ~take_full & ~use_soc & (~found | (ratio < 0.05) | jam)
-        dw = state.delta_w
-        delta_w_n = torch.where(
-            healthy, torch.clamp(dw * 0.5, min=delta_w0),
-            torch.where(crawl | ((~finite | ~good_solve | ~accepted) & ~conv),
-                        torch.clamp(dw * 10.0 + 1e-8, max=1e2), dw))
-        delta_w_n = torch.where(conv, dw, delta_w_n)
+            # Inertia correction by observation: decay delta_w on healthy
+            # steps, bump it on NaN / failed search / crawl / boundary jam.
+            ratio = alpha / torch.clamp(a_pri, min=1e-12)
+            jam = a_pri < 3e-3
+            healthy = take & ~jam & (take_full | use_soc | (ratio >= 0.24))
+            crawl = (take & ~take_full & ~use_soc
+                     & (~found | (ratio < 0.05) | jam))
+            dw = state.delta_w
+            delta_w_n = torch.where(
+                healthy, torch.clamp(dw * 0.5, min=delta_w0),
+                torch.where(
+                    crawl | ((~finite | ~good_solve | ~accepted) & ~conv),
+                    torch.clamp(dw * 10.0 + 1e-8, max=1e2), dw))
+            delta_w_n = torch.where(conv, dw, delta_w_n)
 
-        new_state = IpmState(
-            W=sel(W_n, W), nu=sel(nu_n, nu), s=sel(s_n, s),
-            zL=sel(zL_n, zL), zU=sel(zU_n, zU),
-            mu=torch.where(conv, state.mu, mu), delta_w=delta_w_n,
-            converged=conv, nan_fail=~finite & ~conv,
-            iters=state.iters + (~conv).to(torch.int32),
-            err=err0,
-        )
+            new_state = IpmState(
+                W=sel(W_n, W), nu=sel(nu_n, nu), s=sel(s_n, s),
+                zL=sel(zL_n, zL), zU=sel(zU_n, zU),
+                mu=torch.where(conv, state.mu, mu), delta_w=delta_w_n,
+                converged=conv, nan_fail=~finite & ~conv,
+                iters=state.iters + (~conv).to(torch.int32),
+                err=err0,
+            )
         if not debug:
             return new_state
         # Diagnostics, per lane [B], from the values above (read only):
@@ -586,22 +609,33 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
 def _run(spec, cfg, W0=None, duals0: DualState | None = None,
          prob=nlp) -> SolveResult:
     """Solve a batch (``spec`` leaves [B, ...]) to convergence or cap."""
-    with torch.no_grad():
-        state, step, L, final_check = _make_step(spec, cfg, W0, duals0,
-                                                 prob)
+    with torch.no_grad(), trace.span("ipm.solve"):
+        with trace.span("ipm.setup"):
+            state, step, L, final_check = _make_step(spec, cfg, W0, duals0,
+                                                     prob)
+        B = state.W.shape[0]
         running = ~state.converged & (state.iters < cfg.max_iter)
-        while bool(running.any()):
-            new = step(state)
-            state = IpmState(*[torch.where(_lane(running, a), a, b)
-                               for a, b in zip(new, state)])
-            running = ~state.converged & (state.iters < cfg.max_iter)
-        final = final_check(state)
-        W = final.W
-        status = torch.where(
-            final.converged, STATUS_CONVERGED,
-            torch.where(final.nan_fail, STATUS_NAN, STATUS_RUNNING))
-        pdt = torch.promote_types(W.dtype, spec.x0.dtype)
-        obj = prob.objective(L, W.to(pdt), spec_mod.cast_floats(spec, pdt))
+        with trace.span("ipm.sync"):
+            go = bool(running.any())
+        while go:
+            with trace.span("ipm.iter"):
+                trace.count("ipm.iters")
+                trace.count("ipm.lane_slots", B)
+                new = step(state)
+                state = IpmState(*[torch.where(_lane(running, a), a, b)
+                                   for a, b in zip(new, state)])
+                running = ~state.converged & (state.iters < cfg.max_iter)
+                with trace.span("ipm.sync"):
+                    go = bool(running.any())
+        with trace.span("ipm.final"):
+            final = final_check(state)
+            W = final.W
+            status = torch.where(
+                final.converged, STATUS_CONVERGED,
+                torch.where(final.nan_fail, STATUS_NAN, STATUS_RUNNING))
+            pdt = torch.promote_types(W.dtype, spec.x0.dtype)
+            obj = prob.objective(L, W.to(pdt),
+                                 spec_mod.cast_floats(spec, pdt))
         return SolveResult(
             W=W, nu=final.nu, X=W[..., L.sl_x], U=W[:, :L.N, L.sl_u],
             tau=W[:, 0, L.i_tau], obj=obj, err=final.err, iters=final.iters,
@@ -738,22 +772,29 @@ def solve_batch_rescued(specs, cfg, W0=None, prob=nlp,
     for r in range(rescue_rounds):
         cfg_r = cfg2 if r == 0 else cfg2_tail
         ok1 = res.status == STATUS_CONVERGED
-        if bool(ok1.all()) or not bool(ok1.any()):
+        with trace.span("ipm.sync"):
+            skip = bool(ok1.all()) or not bool(ok1.any())
+        if skip:
             continue
-        d2 = torch.where(ok1[None, :], d2_all,
-                         torch.full_like(d2_all, float("inf")))
-        donor = torch.argmin(d2, dim=1)
-        fail = torch.nonzero(~ok1).flatten()
-        src = donor[fail]
-        duals_seed = spec_mod.map_tensors(lambda t: t[src], res.duals)
-        res2 = _run(spec_mod.take(specs, fail), cfg_r, res.W[src],
-                    duals_seed, prob)
-        iters = res.iters.index_copy(0, fail, res.iters[fail] + res2.iters)
-        duals = DualState(*[
-            getattr(res.duals, f.name).index_copy(
-                0, fail, getattr(res2.duals, f.name))
-            for f in dataclasses.fields(DualState)])
-        res = SolveResult(*[
-            a.index_copy(0, fail, b) for a, b in zip(res[:-1], res2[:-1])],
-            duals=duals)._replace(iters=iters)
+        with trace.span("ipm.rescue"):
+            d2 = torch.where(ok1[None, :], d2_all,
+                             torch.full_like(d2_all, float("inf")))
+            donor = torch.argmin(d2, dim=1)
+            with trace.span("ipm.sync"):
+                fail = torch.nonzero(~ok1).flatten()
+            trace.count("ipm.rescue_lanes", fail.numel())
+            src = donor[fail]
+            duals_seed = spec_mod.map_tensors(lambda t: t[src], res.duals)
+            res2 = _run(spec_mod.take(specs, fail), cfg_r, res.W[src],
+                        duals_seed, prob)
+            iters = res.iters.index_copy(0, fail,
+                                         res.iters[fail] + res2.iters)
+            duals = DualState(*[
+                getattr(res.duals, f.name).index_copy(
+                    0, fail, getattr(res2.duals, f.name))
+                for f in dataclasses.fields(DualState)])
+            res = SolveResult(*[
+                a.index_copy(0, fail, b)
+                for a, b in zip(res[:-1], res2[:-1])],
+                duals=duals)._replace(iters=iters)
     return res

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from obca_torch import trace
 from obca_torch.solver.blocktri import gcr as _gcr_batched
 from obca_torch.solver.blocktri import matvec as _matvec_lanes
 from obca_torch.solver.kernels import blocktri_dense as bd
@@ -50,28 +51,32 @@ def make_kkt_solver_se(nw: int, m: int, factor_dtype, residual_dtype,
     fd, rd = factor_dtype, residual_dtype
 
     def solve(K, ev, reg, rhs):
-        dt = K.dtype
-        K_f = K.to(fd).contiguous()
-        ev_f = ev.to(fd).contiguous()
-        Sinv, Wc = bk.factor_se(K_f, ev_f, reg.to(fd).contiguous(), pat)
-        if fd == rd:
-            # Fast path: forward substitution, then backward substitution
-            # fused with the true-system matvec.
-            def step_fn(res):
-                y = bk.fwd_se(Sinv, ev_f, res.to(fd).contiguous(), pat)
-                return bk.bwd_matvec_se(Wc, y, K_f, ev_f, pat)
-        else:
-            # Mixed precision: p from the factor in its dtype, its matvec
-            # against the system in the residual dtype.
-            K_r, ev_r = K.to(rd), ev.to(rd)
+        with trace.span("kkt.solve"):
+            dt = K.dtype
+            K_f = K.to(fd).contiguous()
+            ev_f = ev.to(fd).contiguous()
+            with trace.span("kkt.factor"):
+                Sinv, Wc = bk.factor_se(K_f, ev_f, reg.to(fd).contiguous(),
+                                        pat)
+            if fd == rd:
+                # Fast path: forward substitution, then backward
+                # substitution fused with the true-system matvec.
+                def step_fn(res):
+                    y = bk.fwd_se(Sinv, ev_f, res.to(fd).contiguous(), pat)
+                    return bk.bwd_matvec_se(Wc, y, K_f, ev_f, pat)
+            else:
+                # Mixed precision: p from the factor in its dtype, its
+                # matvec against the system in the residual dtype.
+                K_r, ev_r = K.to(rd), ev.to(rd)
 
-            def step_fn(res):
-                p = bk.solve_se(Sinv, Wc, ev_f, res.to(fd).contiguous(),
-                                pat).to(rd)
-                return p, _matvec_lanes_se(K_r, ev_r, pat, p)
+                def step_fn(res):
+                    p = bk.solve_se(Sinv, Wc, ev_f, res.to(fd).contiguous(),
+                                    pat).to(rd)
+                    return p, _matvec_lanes_se(K_r, ev_r, pat, p)
 
-        x, lin = _gcr_batched(step_fn, rhs, m, rd)
-        return x.to(dt), lin.to(dt)
+            with trace.span("kkt.refine"):
+                x, lin = _gcr_batched(step_fn, rhs, m, rd)
+            return x.to(dt), lin.to(dt)
 
     return solve
 
@@ -90,19 +95,23 @@ def make_kkt_solver(nw: int, m: int, factor_dtype, residual_dtype):
     fd, rd = factor_dtype, residual_dtype
 
     def solve(K, E, reg, rhs):
-        dt = K.dtype
-        d = torch.arange(K.shape[-1], device=K.device)
-        K_reg = K.clone()
-        K_reg[:, :, d, d] += reg[:, None, :]
-        E_f = E.to(fd).contiguous()
-        Sinv, W = bd.factor_dense(K_reg.to(fd).contiguous(), E_f)
-        K_r, E_r = K.to(rd), E.to(rd)
+        with trace.span("kkt.solve"):
+            dt = K.dtype
+            d = torch.arange(K.shape[-1], device=K.device)
+            K_reg = K.clone()
+            K_reg[:, :, d, d] += reg[:, None, :]
+            E_f = E.to(fd).contiguous()
+            with trace.span("kkt.factor"):
+                Sinv, W = bd.factor_dense(K_reg.to(fd).contiguous(), E_f)
+            K_r, E_r = K.to(rd), E.to(rd)
 
-        def step_fn(res):
-            p = bd.solve_dense(Sinv, W, E_f, res.to(fd).contiguous()).to(rd)
-            return p, _matvec_lanes(K_r, E_r, p)
+            def step_fn(res):
+                p = bd.solve_dense(Sinv, W, E_f,
+                                   res.to(fd).contiguous()).to(rd)
+                return p, _matvec_lanes(K_r, E_r, p)
 
-        x, lin = _gcr_batched(step_fn, rhs, m, rd)
-        return x.to(dt), lin.to(dt)
+            with trace.span("kkt.refine"):
+                x, lin = _gcr_batched(step_fn, rhs, m, rd)
+            return x.to(dt), lin.to(dt)
 
     return solve

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from obca_torch import nlp
+from obca_torch import nlp, trace
 from obca_torch import spec as spec_mod
 from obca_torch._util import linspace
 from obca_torch.warmstart import dual_ws
@@ -80,16 +80,17 @@ def lattice_warm_start(spec, dtype=None, dual_eps=1e-2, cfg=None,
                 field=lattice_mod.plan_field(lane, lcfg)))
         W = torch.cat(lanes, dim=0)
         return W[0] if single else W
-    lcfg = cfg or lattice_mod.LatticeConfig()
-    poses, dirs, seg_len, _n_valid, reached = lattice_mod.extract(
-        spec, field, lcfg)
-    X_lat, U_lat = velosmooth.polyline_time_sampled(spec, poses, dirs,
-                                                    seg_len)
-    X_rs, U_rs = velosmooth.rs_time_sampled(spec)
-    r = reached[:, None, None]
-    X = torch.where(r, X_lat, X_rs)
-    U = torch.where(r, U_lat, U_rs)
-    W = warm_start(spec, X=X, U=U, dtype=dtype, dual_eps=dual_eps)
+    with trace.span("warmstart.lattice"):
+        lcfg = cfg or lattice_mod.LatticeConfig()
+        poses, dirs, seg_len, _n_valid, reached = lattice_mod.extract(
+            spec, field, lcfg)
+        X_lat, U_lat = velosmooth.polyline_time_sampled(spec, poses, dirs,
+                                                        seg_len)
+        X_rs, U_rs = velosmooth.rs_time_sampled(spec)
+        r = reached[:, None, None]
+        X = torch.where(r, X_lat, X_rs)
+        U = torch.where(r, U_lat, U_rs)
+        W = warm_start(spec, X=X, U=U, dtype=dtype, dual_eps=dual_eps)
     return W[0] if single else W
 
 

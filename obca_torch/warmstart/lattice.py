@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from obca_torch import geometry
+from obca_torch import geometry, trace
 from obca_torch import spec as spec_mod
 from obca_torch._util import linspace
 
@@ -257,47 +257,50 @@ def _successors(offs, cfg: LatticeConfig):
 
 def plan_field(spec, cfg: LatticeConfig = LatticeConfig()) -> PlanField:
     """Compute the start-independent PlanField of an unbatched spec."""
-    dt, dev = spec.x0.dtype, spec.x0.device
-    lo, _, res = _grid_params(spec.xy_lo, spec.xy_hi, cfg)
-    offs, _deltas, cost, prim_dir, _kappas, _rho, ds = motion_table(spec, cfg)
-    if cfg.grid_lo is not None:
-        offs = torch.as_tensor(motion_offsets_static(cfg), device=dev)
-    occ = occupancy(spec, cfg)
+    with trace.span("warmstart.plan_field"):
+        dt, dev = spec.x0.dtype, spec.x0.device
+        lo, _, res = _grid_params(spec.xy_lo, spec.xy_hi, cfg)
+        offs, _deltas, cost, prim_dir, _kappas, _rho, ds = motion_table(
+            spec, cfg)
+        if cfg.grid_lo is not None:
+            offs = torch.as_tensor(motion_offsets_static(cfg), device=dev)
+        occ = occupancy(spec, cfg)
 
-    # Seed the value iteration with every qualifying goal-escape
-    # endpoint, keyed round(score*256)*4096 + index so the scatter-min
-    # keeps a tie-stable candidate.
-    esc_flat, esc_ok, esc_scores, esc_cx, esc_cy, esc_ch = staging_goal(
-        spec, cfg, occ, lo, res)
-    big = torch.tensor(1e9, dtype=dt, device=dev)
-    C = esc_ok.shape[0]
-    iscore = torch.round(torch.where(
-        esc_ok, esc_scores, torch.full_like(esc_scores, 1e5)) * 256.0).to(
-            torch.int64)
-    key = iscore * 4096 + torch.arange(C, device=dev)
-    key = torch.where(esc_ok, key, torch.full_like(key, _BIGKEY))
-    n_cell = cfg.nx * cfg.ny * cfg.nh
-    flat_idx = (esc_cx * cfg.ny + esc_cy) * cfg.nh + esc_ch
-    seed_key = torch.full((n_cell,), _BIGKEY, dtype=torch.int64, device=dev)
-    seed_key = seed_key.scatter_reduce(0, flat_idx, key, "amin",
-                                       include_self=True)
-    seed_val = torch.where(seed_key < _BIGKEY,
-                           (seed_key // 4096).to(dt) / 256.0, big)
+        # Seed the value iteration with every qualifying goal-escape
+        # endpoint, keyed round(score*256)*4096 + index so the scatter-min
+        # keeps a tie-stable candidate.
+        esc_flat, esc_ok, esc_scores, esc_cx, esc_cy, esc_ch = staging_goal(
+            spec, cfg, occ, lo, res)
+        big = torch.tensor(1e9, dtype=dt, device=dev)
+        C = esc_ok.shape[0]
+        iscore = torch.round(torch.where(
+            esc_ok, esc_scores, torch.full_like(esc_scores, 1e5)) * 256.0).to(
+                torch.int64)
+        key = iscore * 4096 + torch.arange(C, device=dev)
+        key = torch.where(esc_ok, key, torch.full_like(key, _BIGKEY))
+        n_cell = cfg.nx * cfg.ny * cfg.nh
+        flat_idx = (esc_cx * cfg.ny + esc_cy) * cfg.nh + esc_ch
+        seed_key = torch.full((n_cell,), _BIGKEY, dtype=torch.int64,
+                              device=dev)
+        seed_key = seed_key.scatter_reduce(0, flat_idx, key, "amin",
+                                           include_self=True)
+        seed_val = torch.where(seed_key < _BIGKEY,
+                               (seed_key // 4096).to(dt) / 256.0, big)
 
-    succ, inb = _successors(offs, cfg)
-    free = (occ < 0.5).reshape(-1)
-    V = seed_val
-    for _ in range(cfg.n_sweeps):
-        cand = torch.where(inb, V[succ] + cost[:, None], big)
-        Vn = torch.minimum(V, cand.amin(0))
-        Vn = torch.where(free, Vn, big)
-        V = torch.minimum(Vn, seed_val)
-    shape = (cfg.nx, cfg.ny, cfg.nh)
-    return PlanField(V=V.reshape(shape), occ=occ,
-                     seed_key=seed_key.reshape(shape),
-                     seed_val=seed_val.reshape(shape),
-                     esc_flat=tuple(esc_flat), offs=offs, cost=cost,
-                     prim_dir=prim_dir, ds=ds, succ=succ, inb=inb)
+        succ, inb = _successors(offs, cfg)
+        free = (occ < 0.5).reshape(-1)
+        V = seed_val
+        for _ in range(cfg.n_sweeps):
+            cand = torch.where(inb, V[succ] + cost[:, None], big)
+            Vn = torch.minimum(V, cand.amin(0))
+            Vn = torch.where(free, Vn, big)
+            V = torch.minimum(Vn, seed_val)
+        shape = (cfg.nx, cfg.ny, cfg.nh)
+        return PlanField(V=V.reshape(shape), occ=occ,
+                         seed_key=seed_key.reshape(shape),
+                         seed_val=seed_val.reshape(shape),
+                         esc_flat=tuple(esc_flat), offs=offs, cost=cost,
+                         prim_dir=prim_dir, ds=ds, succ=succ, inb=inb)
 
 
 def extract(spec, field: PlanField, cfg: LatticeConfig = LatticeConfig()):
