@@ -106,14 +106,16 @@ non-zero, and no result line is printed):
    44) on the grazing layout of ``tests/test_nav.py``, start y shifted
    by ``uniform(-0.4, 0.4)`` draws, ``ipm.solve_batch_rescued(...,
    prob=nav)`` under ``mixed_solver_config(max_iter=150)``, counted
-   (``factor_se``, ``fwd_se``, ``bwd_se``): every converged lane within
+   (``factor_se``, ``fwd_se``, ``bwd_se``) on the main path (its turns
+   replayed as CUDA graphs): every converged lane within
    1e-5 of its boundary conditions and every stage point at least d_min
    - 1e-4 outside every obstacle, at least the JAX package's converged
    count less 3, and lane 0's controls within 1e-3 of the port's float64
-   solve of the same spec on the CPU; ``factor_se``, ``fwd_se`` and
-   ``bwd_se`` against their plain versions (within 1e-4 relative) on the
-   counted run's first-iteration system and on its last one (a rescue
-   round's, at fewer lanes, when one ran), captured in that run;
+   solve of the same spec on the CPU; an eager solve of the same batch
+   equal to it bit for bit; ``factor_se``, ``fwd_se`` and ``bwd_se``
+   against their plain versions (within 1e-4 relative) on the counted
+   run's first-iteration system and on the eager solve's last one (a
+   rescue round's, at fewer lanes, when one ran);
 11. the f32 main path sharded: a one-rank NCCL group
    (``parallel.distributed.initialize`` on a free localhost port), its
    ``global_scenario_mesh`` and ``parallel.mesh.solve_sharded`` on phase
@@ -495,7 +497,11 @@ class FirstIterationCapture:
     passing every call through to the real wrapper.  With ``keep_last``
     it also records the run's last factorization and the right-hand side
     after it (``last_system``, ``last_rhs``); the copies are made on the
-    card and add no launch of the port's kernels."""
+    card and add no launch of the port's kernels.  The first IPM
+    iteration is a solve's eager turn on either path; a replayed loop
+    turn calls the forward substitution inside its CUDA graph, not from
+    Python, so with ``keep_last`` the solve runs every turn eagerly (the
+    same arithmetic, bit for bit)."""
 
     def __init__(self, bk, keep_last=False):
         self.bk = bk
@@ -525,10 +531,19 @@ class FirstIterationCapture:
             return self._fwd(Sinv, ev, r, pat)
 
         self.bk.factor_se, self.bk.fwd_se = factor, fwd
+        if self.keep_last:
+            from obca_torch.solver import ipm
+
+            self._use_graphs = ipm._use_graphs
+            ipm._use_graphs = lambda device: False
         return self
 
     def __exit__(self, *exc):
         self.bk.factor_se, self.bk.fwd_se = self._factor, self._fwd
+        if self.keep_last:
+            from obca_torch.solver import ipm
+
+            ipm._use_graphs = self._use_graphs
 
 
 def stage_inverse_accuracy(bk, pat, nw, K, ev, reg):
@@ -1178,6 +1193,9 @@ def check_nav(out, status0):
 
     if out["lanes_bc_off"] or out["lanes_too_close"]:
         raise RuntimeError(f"nav: converged lanes fail their checks: {out}")
+    if not out["eager_bitwise"]:
+        raise RuntimeError("nav: the graph-replayed solve and the eager "
+                           "one differ")
     least = NAV_JAX_CONVERGED - NAV_COUNT_SLACK
     if out["converged"] < least:
         raise RuntimeError(f"nav: {out['converged']} lanes converged, "
@@ -1187,6 +1205,19 @@ def check_nav(out, status0):
         raise RuntimeError(f"nav: lane 0 (status {status0}) is "
                            f"{out['lane0_cpu_gap']:.3e} from its float64 "
                            f"CPU solve")
+
+
+def same_result(a, b):
+    """Whether two ``SolveResult``s are equal bit for bit, the dual
+    state included."""
+    import dataclasses
+
+    import torch
+
+    pairs = list(zip(a[:-1], b[:-1])) + [
+        (getattr(a.duals, f.name), getattr(b.duals, f.name))
+        for f in dataclasses.fields(a.duals)]
+    return all(torch.equal(x, y) for x, y in pairs)
 
 
 def nav_cpu_gap(specs, res):
@@ -1847,24 +1878,30 @@ def main():
     clock.lap("9s")
 
     # 10. Point-mass navigation at full width, mixed precision.
-    # The counted run also captures its first IPM iteration's system
-    # and its last one (a rescue round's, at fewer lanes, when one ran).
+    # The counted run is the main path (its turns from the second
+    # replayed as CUDA graphs) and captures its first IPM iteration's
+    # system; an eager solve of the same batch captures the last one (a
+    # rescue round's, at fewer lanes, when one ran) and must equal the
+    # counted run bit for bit.
     _, specs_nav = nav_batch(device)
+    cfg_nav = mixed_solver_config(max_iter=ITERS_NAV)
     bk.reset_launches()
     t0 = time.perf_counter()
-    with FirstIterationCapture(bk, keep_last=True) as cap_nav:
-        res_nav = ipm.solve_batch_rescued(
-            specs_nav, mixed_solver_config(max_iter=ITERS_NAV), prob=nav)
+    with FirstIterationCapture(bk) as cap_nav:
+        res_nav = ipm.solve_batch_rescued(specs_nav, cfg_nav, prob=nav)
         _sync(device)
     nav_out = summarize_nav(specs_nav, res_nav, time.perf_counter() - t0)
     nav_out["launches"] = dict(bk.launches)
     require_route("nav", nav_out["launches"], "bwd_se", "bwd_matvec_se")
     for name, n in nav_out["launches"].items():
         launches[name] += n
+    with FirstIterationCapture(bk, keep_last=True) as cap_last:
+        res_eager = ipm.solve_batch_rescued(specs_nav, cfg_nav, prob=nav)
+    nav_out["eager_bitwise"] = same_result(res_nav, res_eager)
     compare_captured(bk, "nav first-iteration", cap_nav.system, cap_nav.rhs,
                      device, MIXED_ROUTE)
-    compare_captured(bk, "nav last iteration", cap_nav.last_system,
-                     cap_nav.last_rhs, device, MIXED_ROUTE)
+    compare_captured(bk, "nav last iteration", cap_last.last_system,
+                     cap_last.last_rhs, device, MIXED_ROUTE)
     gap, g_status, g_iters = nav_cpu_gap(specs_nav, res_nav)
     nav_out["lane0_cpu_gap"] = gap
     print("nav " + json.dumps(nav_out))

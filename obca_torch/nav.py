@@ -321,7 +321,6 @@ def objective_stage_hessians(L: NavLayout, spec):
     base = base + torch.diag_embed(PIN_KAPPA * pin
                                    + spec.w_reg[:, None] * (dual_sel - pin))
 
-    iu = np.arange(L.sl_u.start, L.sl_u.stop)
     r_u2 = 2.0 * spec.r_u
     r_du2 = 2.0 * spec.r_du / spec.Ts[:, None] ** 2
     ks = torch.arange(N + 1, device=dev)
@@ -332,10 +331,10 @@ def objective_stage_hessians(L: NavLayout, spec):
     d_u = (in_cost * r_u2[:, None] + (pair_prev + pair_next) * r_du2[:, None]
            + dummy * PIN_KAPPA * torch.ones((2,), dtype=dt, device=dev))
     Hdiag = base[:, None].expand(B, N + 1, nw, nw).clone()
-    Hdiag[:, :, iu, iu] += d_u
+    nlp._diagonal(Hdiag, L.sl_u).add_(d_u)
 
     Ocross = torch.zeros((B, nw, nw), dtype=dt, device=dev)
-    Ocross[:, iu, iu] += -r_du2
+    nlp._diagonal(Ocross, L.sl_u).add_(-r_du2)
     return Hdiag, Ocross
 
 

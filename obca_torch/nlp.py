@@ -21,6 +21,7 @@ and is the reference the closed form is held against.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -364,7 +365,6 @@ def objective_stage_hessians(L: Layout, spec):
     base = base + torch.diag_embed(PIN_KAPPA * pin
                                    + spec.w_reg[:, None] * (dual_sel - pin))
 
-    iu = np.arange(L.sl_u.start, L.sl_u.stop)
     r_u2 = 2.0 * spec.r_u                                     # [B, 2]
     r_du2 = 2.0 * spec.r_du / spec.Ts[:, None] ** 2
     ks = torch.arange(N + 1, device=dev)
@@ -375,11 +375,16 @@ def objective_stage_hessians(L: Layout, spec):
     d_u = (in_cost * r_u2[:, None] + (pair_prev + pair_next) * r_du2[:, None]
            + dummy * PIN_KAPPA * torch.ones((2,), dtype=dt, device=dev))
     Hdiag = base[:, None].expand(B, N + 1, nw, nw).clone()
-    Hdiag[:, :, iu, iu] += d_u
+    _diagonal(Hdiag, L.sl_u).add_(d_u)
 
     Ocross = torch.zeros((B, nw, nw), dtype=dt, device=dev)
-    Ocross[:, iu, iu] += -r_du2
+    _diagonal(Ocross, L.sl_u).add_(-r_du2)
     return Hdiag, Ocross
+
+
+def _diagonal(a, sl):
+    """The diagonal of a[..., sl, sl] (a view)."""
+    return a[..., sl, sl].diagonal(dim1=-2, dim2=-1)
 
 
 def coupling_structure(L: Layout):
@@ -424,13 +429,13 @@ def coupling_values(L: Layout, spec):
     dev = spec.x0.device
     B = spec.x0.shape[0]
     du_on = (spec.du_max >= 0).to(dt)
-    rate_sign = torch.tensor([1.0, -1.0, 1.0, -1.0], dtype=dt, device=dev)
+    consts = _consts(dt, dev)
     r_du2 = 2.0 * spec.r_du / spec.Ts[:, None] ** 2
     tau_link = torch.zeros if L.fix_time else torch.ones
     vals = torch.cat([
         torch.ones((B, 4), dtype=dt, device=dev),
         tau_link((B, 1), dtype=dt, device=dev),
-        rate_sign * du_on[:, [0, 0, 1, 1]],
+        consts["rate_sign_e"] * du_on[:, consts["rate_in"]],
         -r_du2,
     ], dim=-1)
     ks = torch.arange(L.N, device=dev)
@@ -503,19 +508,67 @@ def _dynamics_derivatives(L: Layout, z, nu4, Ts, wb):
     return Jf, H
 
 
+@functools.lru_cache(maxsize=None)
+def _block_index(L: Layout, device):
+    """The index arrays of the closed-form constraint blocks as int64
+    tensors on ``device``, built once per layout and device so that an
+    iteration builds no tensor from host data."""
+    M, V = L.M, L.V
+    eq0, lam0, mu0 = L.r_obca_eq.start, L.sl_lam.start, L.sl_mu.start
+    iu = np.arange(L.sl_u.start, L.sl_u.stop)
+    rows2 = eq0 + 2 * np.arange(M)[:, None, None] + np.arange(2)[None, :, None]
+    cn = lam0 + V * np.arange(M)[:, None] + np.arange(V)[None, :]
+    cmu = mu0 + 4 * np.arange(M)[:, None] + np.arange(4)[None, :]
+    rd = L.r_dist.start + np.arange(M)
+    ix = dict(
+        eq_lam=np.broadcast_arrays(rows2, cn[:, None, :]),       # [M, 2, V]
+        eq_mu=np.broadcast_arrays(rows2, cmu[:, None, :]),       # [M, 2, 4]
+        nrm_lam=np.broadcast_arrays((L.r_norm.start + np.arange(M))[:, None],
+                                    cn),
+        dst=rd,
+        dst_lam=np.broadcast_arrays(rd[:, None], cn),
+        dst_mu=np.broadcast_arrays(rd[:, None], cmu),
+        rate=(L.r_rate.start + np.arange(4), iu[np.array([0, 0, 1, 1])]),
+        lam_cols=lam0 + np.arange(M * V),
+        lam_lam=np.broadcast_arrays(cn[:, :, None], cn[:, None, :]),
+    )
+
+    def tensor(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
+                               device=device)
+
+    return {k: tuple(tensor(a) for a in v) if isinstance(v, (tuple, list))
+            else tensor(v) for k, v in ix.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _consts(dtype, device):
+    """The constant values of the blocks in ``dtype`` on ``device``
+    (built once): the ego box's G, the rate rows' signs in J and in the
+    coupling values, and the input each rate row bounds."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return dict(G=t(EGO_G), rate_sign_j=t([-1.0, 1.0, -1.0, 1.0]),
+                rate_sign_e=t([1.0, -1.0, 1.0, -1.0]),
+                rate_in=torch.as_tensor([0, 0, 1, 1], device=device))
+
+
 def constraint_blocks_analytic(L: Layout, W, nu, spec):
     """Per-stage constraint Jacobians J [B, N+1, nc, nw] and the
     nu-weighted constraint Hessians Hc [B, N+1, nw, nw], closed form."""
     B, Np1, nw, nc = W.shape[0], L.N + 1, L.nw, L.nc
     M, V = L.M, L.V
     dt, dev = W.dtype, W.device
+    ix = _block_index(L, dev)
+    consts = _consts(dt, dev)
     x = W[..., L.sl_x]
     lam = W[..., L.sl_lam].reshape(B, Np1, M, V)
     psi = x[..., 2]
     t = x[..., :2]
     A = spec.obstacles.A                                     # [B, M, V, 2]
     b = spec.obstacles.b
-    G = torch.as_tensor(EGO_G, dtype=dt, device=dev)         # [4, 2]
+    G = consts["G"]                                          # [4, 2]
     sgn = 1.0 if L.signed else -1.0
 
     cth, sth = torch.cos(psi), torch.sin(psi)
@@ -532,8 +585,7 @@ def constraint_blocks_analytic(L: Layout, W, nu, spec):
 
     # ---- Jacobian ----
     J = torch.zeros((B, Np1, nc, nw), dtype=dt, device=dev)
-    i_bc = np.arange(L.r_bc.start, L.r_bc.stop)
-    J[:, :, i_bc, i_bc] = 1.0
+    _diagonal(J, L.r_bc).fill_(1.0)
 
     nu_dyn = nu[..., L.r_dyn]
     Jf, H7 = _dynamics_derivatives(L, W[..., :7], nu_dyn,
@@ -543,41 +595,17 @@ def constraint_blocks_analytic(L: Layout, W, nu, spec):
 
     eq0 = L.r_obca_eq.start
     J[:, :, eq0:eq0 + 2 * M, 2] = Rpt_s.reshape(B, Np1, 2 * M)
-    lam0 = L.sl_lam.start
-    rr = (eq0 + 2 * np.arange(M)[:, None, None]
-          + np.arange(2)[None, :, None])                      # [M, 2, 1]
-    cc = (lam0 + V * np.arange(M)[:, None, None]
-          + np.arange(V)[None, None, :])                      # [M, 1, V]
-    rr, cc = np.broadcast_arrays(rr, cc)
-    J[:, :, rr, cc] = Rt_A.transpose(-1, -2)                  # [B,K,M,2,V]
-    mu0 = L.sl_mu.start
-    rm = (eq0 + 2 * np.arange(M)[:, None, None]
-          + np.arange(2)[None, :, None])
-    cm = (mu0 + 4 * np.arange(M)[:, None, None]
-          + np.arange(4)[None, None, :])
-    rm, cm = np.broadcast_arrays(rm, cm)
-    J[:, :, rm, cm] = G.T
+    J[:, :, ix["eq_lam"][0], ix["eq_lam"][1]] = Rt_A.transpose(-1, -2)
+    J[:, :, ix["eq_mu"][0], ix["eq_mu"][1]] = G.T
 
-    n0 = L.r_norm.start
-    rn = (n0 + np.arange(M))[:, None]
-    cn = lam0 + V * np.arange(M)[:, None] + np.arange(V)[None, :]
-    rn_b, cn_b = np.broadcast_arrays(rn, cn)
-    J[:, :, rn_b, cn_b] = sgn * 2.0 * torch.einsum("bmvd,bkmd->bkmv", A, s)
-    d0 = L.r_dist.start
-    rd = d0 + np.arange(M)
-    J[:, :, rd, 0] = s[..., 0]
-    J[:, :, rd, 1] = s[..., 1]
+    J[:, :, ix["nrm_lam"][0], ix["nrm_lam"][1]] = sgn * 2.0 * torch.einsum(
+        "bmvd,bkmd->bkmv", A, s)
+    J[:, :, ix["dst"], 0] = s[..., 0]
+    J[:, :, ix["dst"], 1] = s[..., 1]
     face_val = torch.einsum("bmvd,bkd->bkmv", A, t) - b[:, None]
-    rd_b, cn_b2 = np.broadcast_arrays(rd[:, None], cn)
-    J[:, :, rd_b, cn_b2] = face_val
-    cmu = mu0 + 4 * np.arange(M)[:, None] + np.arange(4)[None, :]
-    rd_m, cmu_b = np.broadcast_arrays(rd[:, None], cmu)
-    J[:, :, rd_m, cmu_b] = -spec.ego_g[:, None, None, :]
-
-    g0 = L.r_rate.start
-    iu = np.arange(L.sl_u.start, L.sl_u.stop)
-    J[:, :, g0 + np.arange(4), iu[np.array([0, 0, 1, 1])]] = torch.tensor(
-        [-1.0, 1.0, -1.0, 1.0], dtype=dt, device=dev)
+    J[:, :, ix["dst_lam"][0], ix["dst_lam"][1]] = face_val
+    J[:, :, ix["dst_mu"][0], ix["dst_mu"][1]] = -spec.ego_g[:, None, None, :]
+    J[:, :, ix["rate"][0], ix["rate"][1]] = consts["rate_sign_j"]
 
     # ---- nu-weighted constraint Hessian ----
     nu_eq = nu[..., L.r_obca_eq].reshape(B, Np1, M, 2)
@@ -588,17 +616,12 @@ def constraint_blocks_analytic(L: Layout, W, nu, spec):
     Hc[..., 2, 2] += -torch.einsum("bkmd,bkmd->bk", nu_eq, Rt_s)
     flat = torch.einsum("bkmd,bkmvd->bkmv", nu_eq, Rpt_A).reshape(
         B, Np1, M * V)
-    lam_cols = lam0 + np.arange(M * V)
+    lam_cols = ix["lam_cols"]
     Hc[..., 2, lam_cols] += flat
     Hc[..., lam_cols, 2] += flat
     AAt = torch.einsum("bmvd,bmwd->bmvw", A, A)
     h_ll = 2.0 * sgn * nu_nrm[..., None, None] * AAt[:, None]
-    rl = (lam0 + V * np.arange(M)[:, None, None]
-          + np.arange(V)[None, :, None])
-    cl = (lam0 + V * np.arange(M)[:, None, None]
-          + np.arange(V)[None, None, :])
-    rl, cl = np.broadcast_arrays(rl, cl)
-    Hc[:, :, rl, cl] += h_ll
+    Hc[:, :, ix["lam_lam"][0], ix["lam_lam"][1]] += h_ll
     h_tl = nu_dst[..., None, None] * A[:, None]               # [B,K,M,V,2]
     for d in range(2):
         h_d = h_tl[..., d].reshape(B, Np1, M * V)

@@ -13,11 +13,20 @@ lane whose own predicate ``~converged & iters < max_iter`` was false
 before the iteration keeps its state (exactly what ``while_loop`` does
 under ``vmap``).  The loop runs while any lane runs.
 
+On a CUDA batch the loop replays CUDA graphs from its second turn on:
+the iteration's work up to each factorization is one graph, captured
+once per solve, and ``factor_se`` runs eagerly between two graphs, one
+call of its wrapper per factorization as on the CPU (:class:`_TurnGraphs`).
+The arithmetic is the same either way.
+
 Each phase of an iteration runs under a span of ``obca_torch.trace``
 named after the JAX package's scope (``ipm.residuals``, ``ipm.assemble``,
 ``ipm.ruiz``, ``ipm.recover_ftb``, ``ipm.merit_ls``, ``ipm.soc``,
 ``ipm.watchdog``, ``ipm.update``), inside ``ipm.iter`` and
-``ipm.solve``; ``ipm.sync`` marks each host read of a device value.
+``ipm.solve``; ``ipm.sync`` marks each host read of a device value.  A
+replayed turn holds ``ipm.replay`` (one a graph) and ``kkt.factor``
+instead: the phase spans come from eager turns and from the capture
+(``ipm.capture``).
 
 Status codes: 0 = converged, 1 = running/max-iter, 2 = NaN-guarded.
 """
@@ -32,6 +41,7 @@ import torch
 from obca_torch import nlp, trace
 from obca_torch import spec as spec_mod
 from obca_torch.solver import blocktri, kkt
+from obca_torch.solver.kernels import runtime
 
 STATUS_CONVERGED = 0
 STATUS_RUNNING = 1
@@ -189,6 +199,9 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
     ``total_lagrangian``, ``assemble_kkt_structured``,
     ``coupling_structure``, ``default_init``).
 
+    ``step(state)`` runs one iteration; ``step.turn(state)`` is the
+    same iteration as a generator that yields a ``kkt.FactorRequest`` at
+    each factorization, which :func:`_run` captures as CUDA graphs.
     With ``debug`` the step returns (state, diag): per-lane [B]
     diagnostics with the JAX package's keys, which only read the step's
     values, so the state is the same bit for bit.
@@ -371,7 +384,10 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
                         torch.full_like(val, float("inf")))
         return _amin(a)
 
-    def step(state: IpmState) -> IpmState:
+    def turn(state: IpmState):
+        """One iteration as a generator: it yields a
+        ``kkt.FactorRequest`` at each factorization, is sent back the
+        factor, and returns the new state."""
         W, nu, s, zL, zU, mu = (state.W, state.nu, state.s, state.zL,
                                 state.zU, state.mu)
         # --- residuals, convergence test, barrier update ---
@@ -416,7 +432,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
         reg = torch.cat([df[:, None].expand(B, nw),
                          torch.full((B, nc), -delta_factor, dtype=dt,
                                     device=dev)], dim=-1)
-        d, lin_res = kkt_main(K_s, ev_s, reg, rhs_s)
+        d, lin_res = yield from kkt_main.steps(K_s, ev_s, reg, rhs_s)
         # Step-quality gate: never take a diverged refined solve.
         good_solve = lin_res <= 0.1 * (1.0 + _amax(torch.abs(rhs_s)))
         d = d * dsc
@@ -483,7 +499,8 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
                     [torch.zeros_like(rhs_w),
                      eq_row * (-c_full) + in_row * (-(c_full - s_full))],
                     dim=-1)
-                d_soc, _ = kkt_soc(K_s, ev_s, reg, rhs_soc * dsc)
+                d_soc, _ = yield from kkt_soc.steps(K_s, ev_s, reg,
+                                                    rhs_soc * dsc)
                 d_soc = d_soc * dsc
                 dW_soc = d_soc[..., :nw]
                 dy_soc = torch.where(in_row > 0, -d_soc[..., nw:], zero)
@@ -603,12 +620,132 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
             err=torch.where(state.converged, state.err, err0),
             converged=conv)
 
+    def step(state: IpmState) -> IpmState:
+        return kkt.run(turn(state))
+
+    step.turn = turn
     return state0, step, L, final_check
+
+
+def _use_graphs(device) -> bool:
+    """Whether :func:`_run` replays its turns as CUDA graphs: on a CUDA
+    batch, not on the CPU."""
+    return device.type == "cuda"
+
+
+# device -> (graph pool, capture stream, anchor graph, its buffer).
+_POOLS: dict = {}
+
+
+def _graph_pool(device):
+    """The memory pool and capture stream of every solve's graphs on
+    ``device``.  A tiny graph captured into the pool holds it for the
+    process, so that each solve's graphs reuse its memory after the
+    previous solve's were released, instead of leaving a pool behind
+    that only ``torch.cuda.empty_cache`` would free.  (A
+    ``torch.cuda.MemPool`` does not do: in torch 2.11 a second capture
+    into it after the first graph is freed fails an assertion of the
+    pinned-host allocator.)"""
+    if device not in _POOLS:
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(device)
+        anchor = torch.cuda.CUDAGraph()
+        one = torch.zeros((1,), device=device)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            anchor.capture_begin(pool=pool)
+            one.add_(1.0)
+            anchor.capture_end()
+        _POOLS[device] = (pool, stream, anchor, one)
+    return _POOLS[device][:2]
+
+
+def _merge(new: IpmState, state: IpmState, running, max_iter: int):
+    """The loop's update rule: the running lanes of ``new`` over
+    ``state``, and the new running mask."""
+    merged = IpmState(*[torch.where(_lane(running, a), a, b)
+                        for a, b in zip(new, state)])
+    return merged, ~merged.converged & (merged.iters < max_iter)
+
+
+def _graph_turn(turn, state: IpmState, running, max_iter: int):
+    """One loop turn of ``turn`` (a step's generator) in place: the state
+    and the running mask :func:`_merge` gives written back into
+    ``state`` and ``running``; returns whether any lane runs, on the
+    device."""
+    merged, now = _merge((yield from turn(state)), state, running, max_iter)
+    for dst, src in zip((*state, running), (*merged, now)):
+        dst.copy_(src)
+    return running.any()
+
+
+class _TurnGraphs:
+    """The loop turn of :func:`_run` as CUDA graphs, cut at each
+    factorization.
+
+    Captured from ``turn`` (the step's generator) into static copies of
+    the state and the running mask: the work before the first
+    factorization, between two, and after the last is one graph each.
+    The last one also merges the running lanes into the static state,
+    writes it back and reduces the new running mask to one flag.  Each
+    :meth:`replay` replays the graphs in order; between two it calls the
+    factor kernel's wrapper eagerly on the first graph's outputs and
+    copies its (Sinv, Wc) into the next graph's inputs.  A replay adds
+    each graph's captured kernel launches to ``runtime.launches`` (the
+    capture itself launches nothing, and its counts are taken back).
+    """
+
+    def __init__(self, turn, state: IpmState, running, max_iter: int):
+        self.device = state.W.device
+        self.state = IpmState(*[t.clone() for t in state])
+        self.running = running.clone()
+        self.graphs, self.launches = [], []
+        self.requests, self.factors = [], []
+        pool, stream = _graph_pool(self.device)
+        gen = _graph_turn(turn, self.state, self.running, max_iter)
+        done, out = False, None
+        with torch.cuda.device(self.device):
+            while not done:
+                g = torch.cuda.CUDAGraph()
+                before = dict(runtime.launches)
+                with torch.cuda.stream(stream):
+                    g.capture_begin(pool=pool)
+                    try:
+                        done, out = kkt.resume(
+                            gen, self.factors[-1] if self.factors else None)
+                    finally:
+                        g.capture_end()
+                self.launches.append({k: n - before[k]
+                                      for k, n in runtime.launches.items()
+                                      if n != before[k]})
+                runtime.launches.update(before)
+                self.graphs.append(g)
+                if not done:
+                    self.requests.append(out)
+                    self.factors.append(out.outputs())
+        self.go = out
+
+    def replay(self):
+        """One loop turn."""
+        with torch.cuda.device(self.device):
+            for i, g in enumerate(self.graphs):
+                with trace.span("ipm.replay"):
+                    g.replay()
+                for k, n in self.launches[i].items():
+                    runtime.launches[k] += n
+                if i < len(self.requests):
+                    Sinv, Wc = self.requests[i].factor()
+                    self.factors[i][0].copy_(Sinv)
+                    self.factors[i][1].copy_(Wc)
 
 
 def _run(spec, cfg, W0=None, duals0: DualState | None = None,
          prob=nlp) -> SolveResult:
-    """Solve a batch (``spec`` leaves [B, ...]) to convergence or cap."""
+    """Solve a batch (``spec`` leaves [B, ...]) to convergence or cap.
+
+    The first turn runs eagerly (on a CUDA batch it is also the warm-up
+    that capture needs); on a CUDA batch the second turn captures
+    :class:`_TurnGraphs`, and it and every later turn replay them.  The
+    graphs are released when the call returns."""
     with torch.no_grad(), trace.span("ipm.solve"):
         with trace.span("ipm.setup"):
             state, step, L, final_check = _make_step(spec, cfg, W0, duals0,
@@ -617,16 +754,29 @@ def _run(spec, cfg, W0=None, duals0: DualState | None = None,
         running = ~state.converged & (state.iters < cfg.max_iter)
         with trace.span("ipm.sync"):
             go = bool(running.any())
+        graphs, turns = None, 0
         while go:
             with trace.span("ipm.iter"):
                 trace.count("ipm.iters")
                 trace.count("ipm.lane_slots", B)
-                new = step(state)
-                state = IpmState(*[torch.where(_lane(running, a), a, b)
-                                   for a, b in zip(new, state)])
-                running = ~state.converged & (state.iters < cfg.max_iter)
-                with trace.span("ipm.sync"):
-                    go = bool(running.any())
+                if graphs is None and turns and _use_graphs(state.W.device):
+                    with trace.span("ipm.capture"):
+                        graphs = _TurnGraphs(step.turn, state, running,
+                                             cfg.max_iter)
+                    trace.count("ipm.graph_captures")
+                if graphs is None:
+                    state, running = _merge(step(state), state, running,
+                                            cfg.max_iter)
+                    with trace.span("ipm.sync"):
+                        go = bool(running.any())
+                else:
+                    graphs.replay()
+                    trace.count("ipm.graph_replays")
+                    state = graphs.state
+                    with trace.span("ipm.sync"):
+                        go = bool(graphs.go)
+            turns += 1
+        del graphs
         with trace.span("ipm.final"):
             final = final_check(state)
             W = final.W

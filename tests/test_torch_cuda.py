@@ -547,3 +547,165 @@ def test_mesh_and_nccl_refuse_without_a_gpu():
                                backend="nccl")
     with pytest.raises(RuntimeError, match="GPU"):
         distributed.initialize("localhost:1", num_processes=1, process_id=0)
+
+
+def _graph_batch(family, B, dev):
+    """(specs, config, W0, problem module) of a benchmark-sized batch of
+    B lanes: reverse parking at N=80 on the f32 route from lattice warm
+    starts (starts x, y + uniform(-0.5, 0.5)), or nav at N=60 on the
+    mixed route from its default start (y + uniform(-0.4, 0.4))."""
+    import dataclasses
+
+    from obca_torch import (f32_solver_config, mixed_solver_config, nav,
+                            reverse_parking_spec)
+    from obca_torch import spec as tspec
+    from obca_torch.solver import ipm
+    from obca_torch.warmstart import geometric, lattice
+
+    gen = torch.Generator().manual_seed(15)
+    shift = torch.zeros(B, 4, dtype=torch.float64)
+    if family == "nav":
+        base = nav.nav_spec(N=60, Ts=0.25, device=dev)
+        shift[:, 1] = 0.8 * torch.rand(B, generator=gen,
+                                       dtype=torch.float64) - 0.4
+        specs = dataclasses.replace(tspec.stack([base] * B),
+                                    x0=base.x0 + shift.to(dev))
+        return specs, mixed_solver_config(max_iter=150), None, nav
+    base = reverse_parking_spec(N=80, Ts=0.3, dtype=torch.float32,
+                                device=dev)
+    shift[:, :2] = torch.rand(B, 2, generator=gen,
+                              dtype=torch.float64) - 0.5
+    specs = dataclasses.replace(tspec.stack([base] * B),
+                                x0=base.x0 + shift.float().to(dev))
+    lcfg = lattice.LatticeConfig.for_spec(base)
+    W0 = geometric.lattice_warm_start(specs, dtype=torch.float32, cfg=lcfg,
+                                      field=lattice.plan_field(base, lcfg))
+    return specs, f32_solver_config(max_iter=55), W0, ipm.nlp
+
+
+def _counted(monkeypatch, graphs, fn):
+    """(fn's result, kernel launches, spans, counters) with the loop's
+    turns replayed as graphs or not (``ipm._use_graphs`` patched)."""
+    from obca_torch import trace
+    from obca_torch.solver import ipm
+
+    monkeypatch.setattr(ipm, "_use_graphs", lambda device: graphs)
+    bk.reset_launches()
+    trace.take()
+    trace.enable()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        trace.enable(False)
+    spans, counters = trace.take()
+    return out, dict(bk.launches), spans, counters
+
+
+def _tensors(res):
+    """The tensor fields of a result, nested dual states included."""
+    out = {}
+    for name, v in res._asdict().items():
+        if isinstance(v, torch.Tensor):
+            out[name] = v
+        elif v is not None and hasattr(v, "__dataclass_fields__"):
+            out.update({f"{name}.{k}": getattr(v, k)
+                        for k in v.__dataclass_fields__})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["parking", "nav"])
+def test_cuda_graph_turns_match_eager(family, cuda, monkeypatch):
+    """At B=128 the solve that replays its turns as CUDA graphs equals
+    the eager solve bit for bit (statuses, iterations, W, the duals),
+    with the same kernel launches; it captures once and replays every
+    turn but the first; a replayed turn holds one ``ipm.replay`` a graph
+    and one ``kkt.factor`` a factorization (nav refactors for SOC)."""
+    from obca_torch.solver import ipm
+
+    specs, cfg, W0, prob = _graph_batch(family, 128, cuda)
+
+    def solve():
+        return ipm.solve_batch(specs, cfg, W0, prob=prob)
+
+    eager, l_e, _, c_e = _counted(monkeypatch, False, solve)
+    graph, l_g, spans, c_g = _counted(monkeypatch, True, solve)
+    for name, t in _tensors(eager).items():
+        assert torch.equal(t, _tensors(graph)[name]), name
+    assert l_g == l_e and l_g["factor_se"] > 0
+    assert "ipm.graph_captures" not in c_e
+    assert c_g["ipm.iters"] == c_e["ipm.iters"] > 1
+    assert c_g["ipm.graph_captures"] == 1
+    assert c_g["ipm.graph_replays"] == c_g["ipm.iters"] - 1
+    n_factor = 2 if cfg.soc else 1
+    turn = ["ipm.replay", "kkt.factor"] * n_factor + ["ipm.replay",
+                                                      "ipm.sync"]
+    iters = [i for i, s in enumerate(spans) if s.name == "ipm.iter"]
+    kids = [[s.name for s in spans if s.parent == i] for i in iters]
+    assert "ipm.capture" not in kids[0] and kids[1] == ["ipm.capture"] + turn
+    assert all(k == turn for k in kids[2:])
+
+
+@pytest.mark.gpu
+def test_cuda_graph_mpc_period_matches_eager(cuda, monkeypatch):
+    """One control period of ``mpc.run_fleet`` at B=1 (the initial plan
+    and one warm re-solve, each a solve that captures once): every
+    output equal bit for bit to the eager run's, the same launches."""
+    from obca_torch import f32_solver_config, mpc
+
+    specs, _, W0, _ = _graph_batch("parking", 1, cuda)
+    cfg = f32_solver_config(max_iter=70)
+
+    def period():
+        return mpc.run_fleet(specs, cfg, 1, W0, resolve_mu=1e-4,
+                             resolve_max_iter=60, resolve_tol=1e-3)
+
+    eager, l_e, _, c_e = _counted(monkeypatch, False, period)
+    graph, l_g, spans, c_g = _counted(monkeypatch, True, period)
+    for name, t in _tensors(eager).items():
+        assert torch.equal(t, _tensors(graph)[name]), name
+    assert l_g == l_e and l_g["factor_se"] > 0
+    solves = sum(s.name == "ipm.solve" for s in spans)
+    assert solves == 2 and c_g["ipm.graph_captures"] == solves
+    assert c_g["ipm.graph_replays"] == c_g["ipm.iters"] - solves
+
+
+# Reserved over peak allocated device memory that graph-replayed solves
+# may reach: the eager cache and the graphs' pool each hold up to about
+# the peak, and with tensors of a gigabyte (B = 1024) the caching
+# allocator's slack adds about as much again (3.51 on an H100).
+RESERVED_OVER_PEAK = 4.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes,passes", [((128,), 5),
+                                          ((128, 1024, 128, 5), 2)],
+                         ids=["b128", "mixed"])
+def test_cuda_graph_memory_does_not_grow(sizes, passes, cuda):
+    """Graph-replayed solves over the batch sizes ``sizes`` (5 is a
+    rescue round's size) from an emptied cache: one pass to fill the
+    caching allocator, then ``passes`` passes.  After the first of those
+    no solve reserves more device memory than it left, because each
+    solve's graphs are released and later captures reuse their pool,
+    which keeps its highest level; and the reserved memory stays within
+    RESERVED_OVER_PEAK times the peak allocated."""
+    from obca_torch.solver import ipm
+
+    batches = {B: _graph_batch("parking", B, cuda) for B in sizes}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    for B in sizes:
+        ipm.solve_batch(*batches[B][:3], prob=batches[B][3])
+    reserved = []
+    for _ in range(passes):
+        for B in sizes:
+            specs, cfg, W0, prob = batches[B]
+            ipm.solve_batch(specs, cfg, W0, prob=prob)
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved(cuda))
+    peak = torch.cuda.max_memory_allocated(cuda)
+    n = len(sizes)
+    assert max(reserved[n:]) <= reserved[n - 1], reserved
+    assert max(reserved) <= RESERVED_OVER_PEAK * peak, (reserved, peak)

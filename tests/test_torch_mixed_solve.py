@@ -84,15 +84,19 @@ def test_first_step_kkt_solve_pivoted_vs_primal_first(monkeypatch):
     real = kkt.make_kkt_solver_se
 
     def capture(*args, **kwargs):
+        # The step runs a solver's two halves through ``steps`` (a
+        # direct call does too): record the inputs there.
         solve = real(*args, **kwargs)
         tag = len(made)
         made.append(args)
+        steps = solve.steps
 
         def wrapped(K, ev, reg, rhs):
             calls.append((tag, K.clone(), ev.clone(), reg.clone(),
                           rhs.clone()))
-            return solve(K, ev, reg, rhs)
-        return wrapped
+            return steps(K, ev, reg, rhs)
+        solve.steps = wrapped
+        return solve
 
     monkeypatch.setattr(kkt, "make_kkt_solver_se", capture)
     with torch.no_grad():
