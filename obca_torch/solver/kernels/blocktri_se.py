@@ -24,10 +24,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from obca_torch import trace
 # launches, reset_launches and NZ_MAX are re-exported: one count and one
 # cap for all kernels.
 from obca_torch.solver.kernels.runtime import (  # noqa: F401
-    NZ_MAX, check, check_nz, launch, launches, on_cpu, reset_launches)
+    NZ_MAX, NZ_NARROW, check, check_nz, launch, launches, on_cpu,
+    reset_launches)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -181,7 +183,9 @@ def factor_se(K, ev, reg, pat: CouplingPattern):
     reg [B, nz] (diagonal regularization added in-kernel).  Returns
     (Sinv [B, S, nz, nz], Wc [B, S-1, nz, C]) with
     Wc[:, k][:, :, c] = (S_k^{-1} E_k)[:, ucols[c]] — slot k holds
-    stage k's product.
+    stage k's product.  A call on the card that takes the wide
+    instantiation (nz > NZ_NARROW) counts ``kernels.factor_se_wide`` in
+    :mod:`obca_torch.trace`.
     """
     if on_cpu("factor_se", K):
         return factor_se_plain(K, ev, reg, pat)
@@ -198,6 +202,8 @@ def factor_se(K, ev, reg, pat: CouplingPattern):
     Wc = torch.empty((B, S - 1, nz, C), dtype=K.dtype, device=dev)
     launch("factor_se", dev, K, ev, reg, ix["rows"], ix["cidx"],
            ix["ucols"], B, S, nz, nnz, C, Sinv, Wc)
+    if nz > NZ_NARROW:
+        trace.count("kernels.factor_se_wide")
     return Sinv, Wc
 
 

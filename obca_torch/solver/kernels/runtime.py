@@ -78,8 +78,9 @@ def on_cpu(kernel, t):
 
 # The largest stage size nz that the block-tridiagonal kernels take; a
 # larger nz on the card raises.  Each kernel has two compile-time
-# instantiations, one for nz <= 64 and one for 64 < nz <= 128, and its
-# entry point picks one by nz at launch.
+# instantiations, one for nz <= NZ_NARROW and one for NZ_NARROW < nz <=
+# NZ_MAX (the wide one), and its entry point picks one by nz at launch.
+NZ_NARROW = 64
 NZ_MAX = 128
 
 

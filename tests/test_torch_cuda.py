@@ -552,8 +552,11 @@ def test_mesh_and_nccl_refuse_without_a_gpu():
 def _graph_batch(family, B, dev):
     """(specs, config, W0, problem module) of a benchmark-sized batch of
     B lanes: reverse parking at N=80 on the f32 route from lattice warm
-    starts (starts x, y + uniform(-0.5, 0.5)), or nav at N=60 on the
-    mixed route from its default start (y + uniform(-0.4, 0.4))."""
+    starts (starts x, y + uniform(-0.5, 0.5)), the benchmark's cluttered
+    lot ("topo": 4 obstacles of 5 faces, nz = 72, the wide kernels;
+    starts x, y + uniform(-0.5, 0.5), heading + uniform(-0.15, 0.15);
+    cap 70), or nav at N=60 on the mixed route from its default start
+    (y + uniform(-0.4, 0.4))."""
     import dataclasses
 
     from obca_torch import (f32_solver_config, mixed_solver_config, nav,
@@ -571,16 +574,29 @@ def _graph_batch(family, B, dev):
         specs = dataclasses.replace(tspec.stack([base] * B),
                                     x0=base.x0 + shift.to(dev))
         return specs, mixed_solver_config(max_iter=150), None, nav
-    base = reverse_parking_spec(N=80, Ts=0.3, dtype=torch.float32,
-                                device=dev)
-    shift[:, :2] = torch.rand(B, 2, generator=gen,
-                              dtype=torch.float64) - 0.5
+    if family == "topo":
+        from portbench import harness
+        from portbench.families import reverse_topo
+
+        _, cfg, _, _ = harness.cell(harness.benchmark(),
+                                    "reverse_topo_sweep_b128")
+        _, base = reverse_topo.base_spec(cfg, dev, torch.float32)
+        half = torch.tensor([0.5, 0.5, 0.15], dtype=torch.float64)
+        shift[:, :3] = (2.0 * torch.rand(B, 3, generator=gen,
+                                         dtype=torch.float64) - 1.0) * half
+        max_iter = 70
+    else:
+        base = reverse_parking_spec(N=80, Ts=0.3, dtype=torch.float32,
+                                    device=dev)
+        shift[:, :2] = torch.rand(B, 2, generator=gen,
+                                  dtype=torch.float64) - 0.5
+        max_iter = 55
     specs = dataclasses.replace(tspec.stack([base] * B),
                                 x0=base.x0 + shift.float().to(dev))
     lcfg = lattice.LatticeConfig.for_spec(base)
     W0 = geometric.lattice_warm_start(specs, dtype=torch.float32, cfg=lcfg,
                                       field=lattice.plan_field(base, lcfg))
-    return specs, f32_solver_config(max_iter=55), W0, ipm.nlp
+    return specs, f32_solver_config(max_iter=max_iter), W0, ipm.nlp
 
 
 def _counted(monkeypatch, graphs, fn):
@@ -615,16 +631,22 @@ def _tensors(res):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("family", ["parking", "nav"])
+@pytest.mark.parametrize("family", ["parking", "nav", "topo"])
 def test_cuda_graph_turns_match_eager(family, cuda, monkeypatch):
-    """At B=128 the solve that replays its turns as CUDA graphs equals
-    the eager solve bit for bit (statuses, iterations, W, the duals),
-    with the same kernel launches; it captures once and replays every
-    turn but the first; a replayed turn holds one ``ipm.replay`` a graph
-    and one ``kkt.factor`` a factorization (nav refactors for SOC)."""
+    """At B=128 (the cluttered lot at B=8, on the wide kernels) the
+    solve that replays its turns as CUDA graphs equals the eager solve
+    bit for bit (statuses, iterations, W, the duals), with the same
+    kernel launches; it captures once and replays every turn but the
+    first; a replayed turn holds one ``ipm.replay`` a graph and one
+    ``kkt.factor`` a factorization (nav refactors for SOC).  The counter
+    ``kernels.factor_se_wide`` counts every factorization at nz > 64 and
+    none below, and nothing with the recorder off."""
+    from obca_torch import trace
     from obca_torch.solver import ipm
+    from obca_torch.solver.kernels import runtime
 
-    specs, cfg, W0, prob = _graph_batch(family, 128, cuda)
+    specs, cfg, W0, prob = _graph_batch(family, 8 if family == "topo"
+                                        else 128, cuda)
 
     def solve():
         return ipm.solve_batch(specs, cfg, W0, prob=prob)
@@ -634,6 +656,14 @@ def test_cuda_graph_turns_match_eager(family, cuda, monkeypatch):
     for name, t in _tensors(eager).items():
         assert torch.equal(t, _tensors(graph)[name]), name
     assert l_g == l_e and l_g["factor_se"] > 0
+    wide = prob.layout_of(specs).nz > runtime.NZ_NARROW
+    assert wide == (family == "topo")
+    for c in (c_e, c_g):
+        assert c.get("kernels.factor_se_wide", 0) == \
+            (l_g["factor_se"] if wide else 0)
+    if wide:
+        solve()
+        assert trace.take() == ([], {})
     assert "ipm.graph_captures" not in c_e
     assert c_g["ipm.iters"] == c_e["ipm.iters"] > 1
     assert c_g["ipm.graph_captures"] == 1
