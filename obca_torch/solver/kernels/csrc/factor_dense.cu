@@ -18,7 +18,10 @@
 // operations 3 x 2 nz^3 per stage (two products and the inverse)
 // ~ 10.9 GFLOP (~163 us): bound by operations.  The S stages of a
 // scenario are sequential, and so are the nz pivots of a stage: the
-// kernel is latency-bound like factor_se.
+// kernel is latency-bound like factor_se.  On an H100 80GB HBM3 (700 W)
+// it takes 1.27 ms a call at that shape (2.09 ms with the one-barrier-
+// a-pivot elimination, same card and call) and 2.94 ms at nz = 72
+// against a bound of 0.3437 ms (5.09 ms).
 //
 // The first design took 8.07 ms per call at that shape on an H100:
 // 1024 threads per scenario ran a shared-memory Gauss-Jordan inverse
@@ -27,10 +30,11 @@
 // E_{k-1} loaded synchronously on the chain.  This design:
 //
 // - The inverse is factor_se's: the block in registers, four threads
-//   per column, implicit partial pivoting with deferred row scaling and
-//   one barrier per pivot (gauss_jordan.cuh).  The staging of Sinv_k
-//   writes it twice, row-major where K_k came in (written back with
-//   16-byte stores) and transposed, for the next stage's product.
+//   per column, implicit partial pivoting with deferred row scaling, in
+//   panels of eight pivots eliminated in rows, one block barrier each
+//   (gauss_jordan.cuh).  The staging of Sinv_k writes it twice,
+//   row-major where K_k came in (written back with 16-byte stores) and
+//   transposed, for the next stage's product.
 // - Both products are 4 x 4 register tiles from shared memory, one tile
 //   per thread (the (P/4)^2 tiles never outnumber the threads):
 //     W_{k-1}[i, j] = sum_l Sinv_{k-1}'[l, i] E_{k-1}[l, j],
@@ -56,13 +60,14 @@
 //   Shapes with nz % 4 != 0 or an unaligned block take 4-byte cp.async
 //   into that layout and scalar stores (`vec` false).
 // Shared memory: six buffers of 64 P floats (K_k, E_{k-1} twice, the
-// transposed Sinv_{k-1}, W_{k-1}), 86 KB at nz=56, and a few arrays of
-// at most 64; it does not grow with S.  256 threads at most.
+// transposed Sinv_{k-1}, W_{k-1}), 86 KB at nz=56, the elimination's
+// published columns and panel transpositions (5 KB each), and a few
+// arrays of at most 64; it does not grow with S.  256 threads at most.
 //
 // factor_dense_wide_kernel takes 64 < nz <= 128 (the randomized-obstacle
 // families run at nz = 72).  Six buffers of P^2 floats do not fit in
-// 227 KB past nz = 96, so it keeps three, sized from nz (196 KB at
-// nz = 128):
+// 227 KB past nz = 96, so it keeps three, sized from nz (192 KB at
+// nz = 128, 212 KB with the elimination's 9 KB and 9 KB):
 // - kbuf holds K_k, then S_k in place; ebuf E_{k-1}; xbuf the transposed
 //   Sinv_{k-1}, then W_{k-1}, then the transposed Sinv_k.  Each thread
 //   keeps its tiles of W_{k-1} (two at most: (P/4)^2 tiles over 4 nz
@@ -119,19 +124,21 @@ factor_dense_kernel(const float* __restrict__ K, const float* __restrict__ E,
                     int S, int nz, bool vec, float* __restrict__ Sinv,
                     float* __restrict__ W) {
   constexpr int kRows = 16;
-  constexpr int kCbSlot = gj_cb_slot<kRows>();
+  constexpr int kCb = gj_cb_floats<kRows>();
+  constexpr int kPb = gj_pbuf_floats<kRows>();
   extern __shared__ __align__(16) float smem[];
   const int P = (nz + 3) & ~3;  // row stride of the stage buffers
   const int bsz = kNzMax * P;   // floats of one stage buffer
-  float* colbuf = smem;                // [2][kCbSlot] published column
-  float* kbuf = colbuf + 2 * kCbSlot;  // [2][bsz] K_k in, Sinv_k out
+  float* colbuf = smem;                // [kCb] published columns
+  float* kbuf = colbuf + kCb;          // [2][bsz] K_k in, Sinv_k out
   float* ebuf = kbuf + 2 * bsz;        // [2][bsz] E_{k-1}
   float* tbuf = ebuf + 2 * bsz;        // [bsz] Sinv_{k-1}'
   float* wbuf = tbuf + bsz;            // [bsz] W_{k-1}
-  float* pinv = wbuf + bsz;            // [kNzMax] 1 / pivot of step p
+  float* pbuf = wbuf + bsz;            // [kPb] a panel in transposition
+  float* pinv = pbuf + kPb;            // [kNzMax] 1 / pivot of step p
   int* prow = reinterpret_cast<int*>(pinv + kNzMax);  // [kNzMax] r_p
   int* pof = prow + kNzMax;  // [kNzMax] step at which row i pivoted
-  const GjPivots pv{colbuf, pinv, prow, pof};
+  const GjPivots pv{colbuf, pbuf, pinv, prow, pof};
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -176,7 +183,7 @@ factor_dense_kernel(const float* __restrict__ K, const float* __restrict__ E,
 
   // Zero the stage buffers (their padding stays zero) and the published
   // column's slots, then fetch stage 0.
-  for (int e = tid; e < 2 * kCbSlot + 6 * bsz; e += nt) smem[e] = 0.0f;
+  for (int e = tid; e < kCb + 6 * bsz; e += nt) smem[e] = 0.0f;
   __syncthreads();
   fetch(0);
 
@@ -259,19 +266,21 @@ factor_dense_wide_kernel(const float* __restrict__ K,
                          bool vec, float* __restrict__ Sinv,
                          float* __restrict__ W) {
   constexpr int kRows = 32;
-  constexpr int kCbSlot = gj_cb_slot<kRows>();
+  constexpr int kCb = gj_cb_floats<kRows>();
+  constexpr int kPb = gj_pbuf_floats<kRows>();
   constexpr int kTiles = 2;  // output tiles a thread holds at most
   extern __shared__ __align__(16) float smem[];
   const int P = (nz + 3) & ~3;  // row stride and rows of the buffers
   const int bsz = P * P;
-  float* colbuf = smem;                // [2][kCbSlot] published column
-  float* kbuf = colbuf + 2 * kCbSlot;  // [bsz] K_k, then S_k
+  float* colbuf = smem;                // [kCb] published columns
+  float* kbuf = colbuf + kCb;          // [bsz] K_k, then S_k
   float* ebuf = kbuf + bsz;            // [bsz] E_{k-1}
   float* xbuf = ebuf + bsz;            // [bsz] Sinv_{k-1}', W_{k-1}, Sinv_k'
-  float* pinv = xbuf + bsz;            // [kWideNzMax] 1 / pivot of step p
+  float* pbuf = xbuf + bsz;            // [kPb] a panel in transposition
+  float* pinv = pbuf + kPb;            // [kWideNzMax] 1 / pivot of step p
   int* prow = reinterpret_cast<int*>(pinv + kWideNzMax);  // [..] r_p
   int* pof = prow + kWideNzMax;  // [kWideNzMax] step at which row i pivoted
-  const GjPivots pv{colbuf, pinv, prow, pof};
+  const GjPivots pv{colbuf, pbuf, pinv, prow, pof};
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -312,7 +321,7 @@ factor_dense_wide_kernel(const float* __restrict__ K,
 
   // Zero the buffers (their padding stays zero) and the published
   // column's slots, then fetch stage 0.
-  for (int e = tid; e < 2 * kCbSlot + 3 * bsz; e += nt) smem[e] = 0.0f;
+  for (int e = tid; e < kCb + 3 * bsz; e += nt) smem[e] = 0.0f;
   __syncthreads();
   fetch(0);
 
@@ -418,7 +427,8 @@ OBCA_EXPORT int obca_factor_dense_f32(const float* K, const float* E, int B,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nz > kNzMax) {
     const size_t smem =
-        sizeof(float) * (2 * gj_cb_slot<32>() + 3 * P * P + kWideNzMax) +
+        sizeof(float) * (gj_cb_floats<32>() + 3 * P * P +
+                         gj_pbuf_floats<32>() + kWideNzMax) +
         sizeof(int) * 2 * kWideNzMax;
     cudaError_t err = allow_smem(factor_dense_wide_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -426,8 +436,9 @@ OBCA_EXPORT int obca_factor_dense_f32(const float* K, const float* E, int B,
                                                        Sinv, W);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = sizeof(float) * (2 * gj_cb_slot<16>() +
-                                       6 * kNzMax * P + kNzMax) +
+  const size_t smem = sizeof(float) * (gj_cb_floats<16>() +
+                                       6 * kNzMax * P +
+                                       gj_pbuf_floats<16>() + kNzMax) +
                       sizeof(int) * 2 * kNzMax;
   cudaError_t err = allow_smem(factor_dense_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -24,7 +24,10 @@
 // bytes K 130.1 MB in + Sinv 130.1 MB out + Wc 25.2 MB out ~ 286 MB
 // (~85 us); operations 2 nz^3 per stage inverse ~ 3.6 GFLOP (~54 us).
 // The S stages of a scenario are sequential, and so are the nz pivots
-// of a stage: the kernel is latency-bound, not bound by either.
+// of a stage: the kernel is latency-bound, not bound by either.  On an
+// H100 80GB HBM3 (700 W) it takes 1.017 ms a call at that shape (the
+// one-barrier-a-pivot elimination took 1.822 ms, same card and call)
+// and 2.370 ms at nz = 72 against a bound of 0.1382 ms (4.157 ms).
 //
 // The first design took 8.1 ms per call at that shape on an H100: 1024
 // threads per scenario ran a shared-memory Gauss-Jordan inverse (since
@@ -35,22 +38,27 @@
 // This design:
 //
 // - The block is inverted in registers, four threads per column, by
-//   Gauss-Jordan elimination with implicit partial pivoting, deferred
-//   row scaling and one barrier per pivot.  That elimination lives in
-//   gauss_jordan.cuh (gj_eliminate, gj_stage), which factor_dense.cu
-//   shares; its header describes it.
+//   Gauss-Jordan elimination with implicit partial pivoting and
+//   deferred row scaling, in panels of eight pivots with one block
+//   barrier each, each panel eliminated in rows by the warp that holds
+//   it.  That elimination lives in gauss_jordan.cuh (gj_eliminate,
+//   gj_stage), which factor_dense.cu shares; its header describes it.
+//   It gives the factor of the earlier one-barrier-a-pivot elimination
+//   bit for bit.
 // - K_{k+1} (and ev_{k+1}) are fetched with 16-byte cp.async into the
 //   second of two stage buffers while stage k eliminates; Sinv_k is
 //   staged in the buffer K_k came in and written back with 16-byte
 //   stores.  Wc_k and the next Schur update walk each column's
 //   coupling entries (a list built once), not all nnz of them.
-// Shared memory: 2 nz^2 + nz C + C^2 + 2 nnz floats and a few arrays of
-// at most 64; it does not grow with S.
+// Shared memory: 2 nz^2 + nz C + C^2 + 2 nnz floats, the published
+// columns and the panel transpositions (5 KB and 5 KB for nz <= 64,
+// 9 KB and 9 KB above), and a few arrays of at most 128; it does not
+// grow with S.
 //
 // Two instantiations of the same code, picked by nz at launch: 16 rows
 // a thread for nz <= 64 (256 threads at most), and 32 rows a thread for
 // 64 < nz <= 128 (512 threads at most; the randomized-obstacle families
-// run at nz = 72).  Its shared memory must fit in 227 KB: about 137 KB
+// run at nz = 72).  Its shared memory must fit in 227 KB: about 154 KB
 // at nz = 128 and C = 11, but a pattern with C near nz at nz = 128 does
 // not fit and its launch is refused.  nz is capped at 128 (the wrapper
 // raises above it; the entry point refuses it too).
@@ -65,14 +73,16 @@ factor_se_kernel(const float* __restrict__ K, const float* __restrict__ ev,
                  int C, bool vec, float* __restrict__ Sinv,
                  float* __restrict__ Wc) {
   constexpr int kNzMax = gj_nz_max<kRows>();
-  constexpr int kCbSlot = gj_cb_slot<kRows>();
+  constexpr int kCb = gj_cb_floats<kRows>();
+  constexpr int kPb = gj_pbuf_floats<kRows>();
   extern __shared__ __align__(16) float smem[];
   const int blk = nz * nz;
-  float* colbuf = smem;               // [2][kCbSlot] published column
-  float* kbuf = colbuf + 2 * kCbSlot;  // [2][nz*nz] K_k in, Sinv_k out
+  float* colbuf = smem;                // [kCb] published columns
+  float* kbuf = colbuf + kCb;          // [2][nz*nz] K_k in, Sinv_k out
   float* w = kbuf + 2 * blk;           // [nz, C] Wc_k
   float* U = w + nz * C;               // [C, C] Schur update of S_{k+1}
-  float* pinv = U + C * C;             // [kNzMax] 1 / pivot of step p
+  float* pbuf = U + C * C;             // [kPb] a panel in transposition
+  float* pinv = pbuf + kPb;            // [kNzMax] 1 / pivot of step p
   float* evs = pinv + kNzMax;          // [2][nnz] ev_k
   int* prow = reinterpret_cast<int*>(evs + 2 * nnz);  // [kNzMax] r_p
   int* pof = prow + kNzMax;    // [kNzMax] step at which row i pivoted
@@ -80,7 +90,7 @@ factor_se_kernel(const float* __restrict__ K, const float* __restrict__ ev,
   int* irow = uidx + kNzMax;   // [nnz]
   int* cent = irow + nnz;      // [nnz] entries j ordered by cidx[j]
   int* cstart = cent + nnz;    // [C + 1] first entry of each ucol
-  const GjPivots pv{colbuf, pinv, prow, pof};
+  const GjPivots pv{colbuf, pbuf, pinv, prow, pof};
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -114,7 +124,7 @@ factor_se_kernel(const float* __restrict__ K, const float* __restrict__ ev,
 
   fetch(0);
   for (int e = tid; e < kNzMax; e += nt) uidx[e] = -1;
-  for (int e = tid; e < 2 * kCbSlot; e += nt) colbuf[e] = 0.0f;
+  for (int e = tid; e < kCb; e += nt) colbuf[e] = 0.0f;
   load_ints(irow, rows, nnz);
   __syncthreads();
   for (int c = tid; c < C; c += nt) uidx[ucols[c]] = c;
@@ -208,8 +218,9 @@ static int launch_factor_se(const float* K, const float* ev,
   // 16-byte copies need nz even (so nz^2 % 4 == 0) and aligned blocks.
   const bool vec = nz % 2 == 0 && aligned16(K) && aligned16(Sinv);
   const size_t smem =
-      sizeof(float) * (2 * gj_cb_slot<kRows>() + 2 * nz * nz + nz * C +
-                       C * C + kNzMax + 2 * nnz) +
+      sizeof(float) * (gj_cb_floats<kRows>() + 2 * nz * nz + nz * C +
+                       C * C + gj_pbuf_floats<kRows>() + kNzMax +
+                       2 * nnz) +
       sizeof(int) * (3 * kNzMax + 2 * nnz + C + 1);
   cudaError_t err = allow_smem(factor_se_kernel<kRows>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

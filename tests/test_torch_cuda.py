@@ -114,9 +114,12 @@ def _rel(got, want):
 def _interchange_system(nz, S, B, kind, seed=0):
     """Stage blocks that need row interchanges, numpy f64: quasidefinite
     blocks (primal part nw = ceil(nz / 2)) whose regularized leading
-    diagonal entry is 1e-8 ("tiny_lead"), or whose rows are randomly
-    permuted ("permuted"); a random duplicate-free coupling pattern of
-    11 entries.  Condition numbers stay below 10 (float64 check)."""
+    diagonal entry is 1e-8 ("tiny_lead"), whose rows are randomly
+    permuted ("permuted"), or whose rows are rolled by 11 ("crossed":
+    each column's diagonal entry moves into the rows of another panel of
+    8 columns, so that the pivots' row interchanges cross the panels of
+    the elimination); a random duplicate-free coupling pattern of 11
+    entries.  Condition numbers stay below 10 (float64 check)."""
     rng = np.random.default_rng(seed)
     nw = (nz + 1) // 2
     nc = nz - nw
@@ -131,6 +134,8 @@ def _interchange_system(nz, S, B, kind, seed=0):
                   (B, 1))
     if kind == "tiny_lead":
         K[:, :, 0, 0] = 1e-8 - reg[:, None, 0]
+    elif kind == "crossed":
+        K = np.roll(K, 11, axis=2)
     else:
         for b in range(B):
             for s in range(S):
@@ -149,14 +154,20 @@ def _interchange_system(nz, S, B, kind, seed=0):
     (64, 5, 1, "permuted"), (64, 2, 2, "tiny_lead"),
     (72, 9, 2, "permuted"), (72, 2, 1, "tiny_lead"),
     (75, 3, 2, "permuted"),
-    (bk.NZ_MAX, 5, 1, "permuted"), (bk.NZ_MAX, 2, 2, "tiny_lead")])
+    (bk.NZ_MAX, 5, 1, "permuted"), (bk.NZ_MAX, 2, 2, "tiny_lead"),
+    (44, 5, 2, "permuted"), (13, 3, 2, "permuted"), (13, 2, 1, "tiny_lead"),
+    (8, 3, 2, "permuted"), (16, 4, 2, "tiny_lead"), (56, 3, 37, "permuted"),
+    (56, 5, 2, "crossed"), (72, 3, 2, "crossed")])
 def test_cuda_factor_fwd_se_with_interchanges(nz, S, B, kind, cuda):
     """factor_se and fwd_se within 1e-4 relative of their plain versions
     in float32 on blocks that need row interchanges (the implicit pivot
     permutation), at nz = 11, 56 and 64 (the instantiation for nz <= 64)
     and 72, 75 (odd: the 4-byte route) and the cap 128 (the one for
     64 < nz <= 128), S = 1, 2 and S that are not multiples of fwd_se's
-    ring of 4 stage buffers, and B = 1."""
+    ring of 4 stage buffers, and B = 1.  The elimination takes its
+    pivots in panels of 8: a last panel of fewer (nz = 44, 13, 75), whole
+    panels only (8, 16: one and two), a rescue round's batch (B = 37),
+    and interchanges across the panels ("crossed")."""
     K, ev, reg, r, pat = _interchange_system(nz, S, B, kind)
     K, ev, reg, r = (_f32(a, cuda) for a in (K, ev, reg, r))
     before = dict(bk.launches)
@@ -213,7 +224,11 @@ def test_cuda_factor_fwd_se_refuse_nz_above_cap(cuda):
     (72, 9, 3, "permuted", False), (72, 7, 3, "tiny_lead", True),
     (75, 3, 2, "permuted", False),
     (bk.NZ_MAX, 5, 1, "permuted", False),
-    (bk.NZ_MAX, 2, 3, "tiny_lead", False)])
+    (bk.NZ_MAX, 2, 3, "tiny_lead", False),
+    (44, 3, 2, "permuted", False), (13, 3, 2, "permuted", False),
+    (8, 2, 2, "tiny_lead", False), (16, 3, 2, "permuted", False),
+    (56, 2, 37, "permuted", False), (56, 3, 2, "crossed", False),
+    (72, 3, 2, "crossed", False)])
 def test_cuda_factor_fwd_dense_with_interchanges(nz, S, B, kind, r_offset,
                                                  cuda):
     """factor_dense (Sinv and W), fwd_dense and then bwd_dense within
@@ -223,8 +238,10 @@ def test_cuda_factor_fwd_dense_with_interchanges(nz, S, B, kind, r_offset,
     4-byte route) and the cap 128 of the wide instantiations; S = 1, 2
     and S that are not multiples of the rings of 4 (fwd_dense) and 8
     (bwd_dense) stage buffers; B = 1 and 3; r, and y for bwd_dense, at a
-    4-byte offset, which takes the 4-byte route.  One launch counted per
-    call."""
+    4-byte offset, which takes the 4-byte route.  The elimination's
+    panels of 8 pivots, as for factor_se: nz = 44, 13 (a last panel of
+    fewer), 8, 16 (whole panels), B = 37 and "crossed" blocks.  One
+    launch counted per call."""
     K, _, reg, r, _ = _interchange_system(nz, S, B, kind)
     rng = np.random.default_rng(2)
     E = 0.3 * rng.standard_normal((B, S - 1, nz, nz)) / np.sqrt(nz)
