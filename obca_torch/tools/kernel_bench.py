@@ -8,8 +8,8 @@ n_chain=50.  It runs on the card; ``main(..., device="cpu")`` runs the
 same steps through the plain versions on the CPU and reports no times
 (a CPU run times PyTorch's CPU kernels, not the card).  In order:
 
-1. that tool's synthetic system (:func:`synthetic_system`; not the one
-   of ``chip_smoke.synthetic_system``);
+1. that tool's synthetic system (:func:`synthetic_system`; not the
+   card tests' ``full_size_batches.full_size_system``);
 2. chained timing: ``n_chain`` calls of ``factor_se``, and of the solve
    (``fwd_se`` then ``bwd_se``), captured in one CUDA graph and replayed
    between two CUDA events, per call (``factor_ms``, ``solve_ms``);
@@ -31,7 +31,7 @@ same steps through the plain versions on the CPU and reports no times
 7. one JSON line.
 
 It also holds the one model of every kernel's bytes and operations and
-the profiler helper that ``chip_smoke.py`` uses.
+the profiler helper that ``kernel_times.py`` and ``chip_smoke.py`` use.
 """
 
 from __future__ import annotations
@@ -119,8 +119,8 @@ def device_ms(fn, runs=25, tries=3):
     the CUDA kernels that ``runs`` calls launch under torch.profiler,
     over ``runs``, with those launches per call.  Unlike the CUDA-event
     time, it leaves out the host's launch gap.  A trace that records no
-    CUDA kernel (one H100 run of ``chip_smoke.py`` got such a trace for
-    one kernel among many that were traced), or a number of kernels that
+    CUDA kernel (one H100 run got such a trace for one kernel among many
+    that were traced), or a number of kernels that
     is not a whole number a call, lost records; it is taken again, up
     to ``tries`` times, and if none is whole the device time was not
     measured and the result is (None, None)."""

@@ -3,15 +3,18 @@ versions, on the card.
 
 A CUDA kernel has no interpret mode, so every test here needs a GPU and
 skips without one.  This file imports neither JAX nor obca_tpu, so it
-also runs where only the port is installed:
+also runs where only the port is installed, with the full-size paths
+of ``tests/test_torch_card_paths.py``:
 
-    python -m pytest --noconftest -q tests/test_torch_cuda.py
+    python -m pytest --noconftest -q -m gpu tests/test_torch_cuda.py \\
+        tests/test_torch_card_paths.py
 """
 
 import numpy as np
 import pytest
 import torch
 
+import full_size_batches as fsb
 from obca_torch.solver import kkt
 from obca_torch.solver.kernels import blocktri_dense as bd
 from obca_torch.solver.kernels import blocktri_se as bk
@@ -65,25 +68,38 @@ def _on_card(a, dev, offset=False):
     return t
 
 
+FULL_SIZE = ["nz56", "nz72", "nz72_permuted", "nz72_tiny_lead"]
+
+
 @pytest.mark.gpu
-def test_cuda_kernels_match_plain(system, cuda):
-    """Relative error <= 1e-4 in float32, each kernel fed the same
-    inputs as its plain version; one launch counted per call."""
-    K, ev, reg, r = (_f32(a, cuda) for a in system)
-    pat = bk.CouplingPattern.of(ROWS, COLS)
+@pytest.mark.parametrize("case", ["small", *FULL_SIZE])
+def test_cuda_kernels_match_plain(case, system, cuda):
+    """Relative error <= 1e-4 in float32 of factor_se, fwd_se,
+    bwd_matvec_se and bwd_se, each kernel fed the same inputs as its
+    plain version (the outputs of the kernel before it); one launch
+    counted per call.  On the small system and at the main paths' shape
+    (``full_size_batches.full_size_system``)."""
+    if case == "small":
+        K, ev, reg, r = system
+        pat = bk.CouplingPattern.of(ROWS, COLS)
+    else:
+        K, ev, reg, r, pat, _ = fsb.full_size_system(case)
+    K, ev, reg, r = (_f32(a, cuda) for a in (K, ev, reg, r))
     before = dict(bk.launches)
     Sinv, Wc = bk.factor_se(K, ev, reg, pat)
     y = bk.fwd_se(Sinv, ev, r, pat)
     p, Ap = bk.bwd_matvec_se(Wc, y, K, ev, pat)
+    q = bk.bwd_se(Wc, y, pat)
     torch.cuda.synchronize()
     Sinv_p, Wc_p = bk.factor_se_plain(K, ev, reg, pat)
     y_p = bk.fwd_se_plain(Sinv, ev, r, pat)
     p_p, Ap_p = bk.bwd_matvec_se_plain(Wc, y, K, ev, pat)
+    q_p = bk.bwd_se_plain(Wc, y, pat)
     for got, want in ((Sinv, Sinv_p), (Wc, Wc_p), (y, y_p), (p, p_p),
-                      (Ap, Ap_p)):
+                      (Ap, Ap_p), (q, q_p)):
         err = (got - want).abs().max() / want.abs().max()
         assert float(err) <= 1e-4
-    for name in ("factor_se", "fwd_se", "bwd_matvec_se"):
+    for name in ("factor_se", "fwd_se", "bwd_matvec_se", "bwd_se"):
         assert bk.launches[name] == before[name] + 1
 
 
@@ -122,16 +138,7 @@ def _interchange_system(nz, S, B, kind, seed=0):
     entries.  Condition numbers stay below 10 (float64 check)."""
     rng = np.random.default_rng(seed)
     nw = (nz + 1) // 2
-    nc = nz - nw
-    M = rng.standard_normal((B, S, nw, nw))
-    A = M @ np.swapaxes(M, -1, -2) / nw + 2.0 * np.eye(nw)
-    Q = rng.standard_normal((B, S, nc, nc))
-    D = -(Q @ np.swapaxes(Q, -1, -2) / nc + np.eye(nc))
-    J = rng.standard_normal((B, S, nc, nw))
-    K = np.concatenate([np.concatenate([A, np.swapaxes(J, -1, -2)], -1),
-                        np.concatenate([J, D], -1)], -2)
-    reg = np.tile(np.concatenate([np.full(nw, 1e-4), np.full(nc, -1e-4)]),
-                  (B, 1))
+    K, reg = fsb.qd_blocks(rng, B, S, nw, nz - nw)
     if kind == "tiny_lead":
         K[:, :, 0, 0] = 1e-8 - reg[:, None, 0]
     elif kind == "crossed":
@@ -349,11 +356,17 @@ def test_cuda_mixed_solve_kernels_match_plain(system, cuda):
 
 
 @pytest.mark.gpu
-def test_cuda_dense_kernels_match_plain(system, dense_e, cuda):
+@pytest.mark.parametrize("case", ["small", *FULL_SIZE])
+def test_cuda_dense_kernels_match_plain(case, system, dense_e, cuda):
     """factor_dense, fwd_dense and bwd_dense within 1e-4 relative of
-    their plain versions in float32, on a dense coupling block."""
-    K, _, reg, r = (_f32(a, cuda) for a in system)
-    E = _f32(dense_e, cuda)
+    their plain versions in float32, on a dense coupling block: on the
+    small system and at the main paths' shape
+    (``full_size_batches.full_size_system``)."""
+    if case == "small":
+        (K, _, reg, r), E = system, dense_e
+    else:
+        K, _, reg, r, _, E = fsb.full_size_system(case)
+    K, reg, r, E = (_f32(a, cuda) for a in (K, reg, r, E))
     K = (K + torch.diag_embed(reg)[:, None]).contiguous()
     before = dict(bk.launches)
     Sinv, W = bd.factor_dense(K, E)
@@ -407,7 +420,7 @@ def test_cuda_dense_kernels_refuse_float64(system, dense_e, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,offset", [
     (3, True), (4096, False), (4096, True), (1_000_003, False),
-    (1_000_003, True)])
+    (1_000_003, True), (100_002, True), (128 * 81 * 56 * 56, False)])
 def test_cuda_probe_kernels_match_plain(n, offset, cuda):
     """The kernel bench's probes against their plain versions: the stream
     kernel equals x + 1 exactly, the FMA probe is within 2 units in the
@@ -415,7 +428,8 @@ def test_cuda_probe_kernels_match_plain(n, offset, cuda):
     as the kernel's fused multiply-add does; without the FMAs the error
     is tens of units or more); n with
     n % 4 != 0 (the float4 route's scalar tail) and x at a 4-byte offset
-    (the scalar route).  One launch counted per call."""
+    (the scalar route); the kernel bench's [128, 81, 56, 56] array.  One
+    launch counted per call."""
     x = _on_card(np.random.default_rng(n).standard_normal(n), cuda, offset)
     before = dict(bk.launches)
     s = probes.stream_add_one(x)
@@ -427,12 +441,6 @@ def test_cuda_probe_kernels_match_plain(n, offset, cuda):
         assert bk.launches[name] == before[name] + 1
 
 
-NAV_VERTS = [
-    [(-4.0, 0.5), (-2.0, 0.5), (-2.0, 5.0), (-4.0, 5.0)],
-    [(2.0, -5.0), (4.0, -5.0), (4.0, -0.5), (2.0, -0.5)],
-]
-
-
 @pytest.mark.gpu
 def test_cuda_nav_mixed_solve_matches_cpu(cuda):
     """The navigation family on the card under ``mixed_solver_config``
@@ -442,11 +450,11 @@ def test_cuda_nav_mixed_solve_matches_cpu(cuda):
     solve of the same spec on the CPU."""
     from obca_torch import SolverConfig, mixed_solver_config, nav
 
-    spec = nav.nav_spec(N=40, vertex_lists=NAV_VERTS, device=cuda)
+    spec = nav.nav_spec(N=40, vertex_lists=fsb.NAV_VERTS, device=cuda)
     bk.reset_launches()
     res = nav.solve(spec, mixed_solver_config(max_iter=150))
     launches = dict(bk.launches)
-    ref = nav.solve(nav.nav_spec(N=40, vertex_lists=NAV_VERTS,
+    ref = nav.solve(nav.nav_spec(N=40, vertex_lists=fsb.NAV_VERTS,
                                  device="cpu"), SolverConfig(max_iter=150))
     assert int(res.status) == int(ref.status) == 0
     assert min(launches["factor_se"], launches["fwd_se"],
@@ -462,7 +470,7 @@ def test_cuda_nav_float64_factor_refused(cuda):
     parking solve does; nothing falls back to the CPU."""
     from obca_torch import SolverConfig, nav
 
-    spec = nav.nav_spec(N=10, vertex_lists=NAV_VERTS, device=cuda)
+    spec = nav.nav_spec(N=10, vertex_lists=fsb.NAV_VERTS, device=cuda)
     with pytest.raises(TypeError):
         nav.solve(spec, SolverConfig(max_iter=5))
 
@@ -482,20 +490,33 @@ def _random_qd(rng, B, S, nw, nc):
     return K, E, rng.standard_normal((B, S, nz))
 
 
-@pytest.mark.gpu
-def test_cuda_cyclic_matches_plain(cuda):
-    """Cyclic reduction on the card: float64 within 1e-10 relative of
-    the plain sequential blocktri on the CPU, float32 within 1e-4 of the
-    dense kernels (which launch)."""
-    from obca_torch.solver import blocktri, cyclic
+CR_SIZES = (81, 321, 641)
 
-    nw, nc = 7, 6
-    K, E, r = _random_qd(np.random.default_rng(5), 4, 33, nw, nc)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,nw,nc,tol_f64", [
+    (4, 33, 7, 6, 1e-10), *[(128, S, 31, 25, 1e-8) for S in CR_SIZES]])
+def test_cuda_cyclic_matches_plain(B, S, nw, nc, tol_f64, cuda):
+    """Cyclic reduction on the card: float64 within ``tol_f64`` relative
+    of the plain sequential blocktri on the CPU, float32 within 1e-4 of
+    the dense kernels (which launch); small, and at the main path's
+    width (nz = 56, B = 128) over S = 81, 321 and 641, where the systems
+    are those of ``bench_cyclic.main(31, 25, 128, (81, 321, 641))``: its
+    ``random_qd`` draws from one ``default_rng(0)``, S after S."""
+    from obca_torch.solver import blocktri, cyclic
+    from obca_torch.tools import bench_cyclic
+
+    if B == 128:
+        rng = np.random.default_rng(0)
+        for s in CR_SIZES[:CR_SIZES.index(S) + 1]:
+            K, E, r = bench_cyclic.random_qd(rng, s, nw, nc, B)
+    else:
+        K, E, r = _random_qd(np.random.default_rng(5), B, S, nw, nc)
     Kc, Ec, rc = (torch.tensor(a, device=cuda) for a in (K, E, r))
     x = cyclic.solve(cyclic.factor(Kc, Ec, nw), rc).cpu()
     Kh, Eh, rh = (torch.tensor(a) for a in (K, E, r))
     x_ref = blocktri.solve(blocktri.factor(Kh, Eh, nw), rh)
-    assert float((x - x_ref).abs().max() / x_ref.abs().max()) <= 1e-10
+    assert float((x - x_ref).abs().max() / x_ref.abs().max()) <= tol_f64
     K32, E32, r32 = (t.float().contiguous() for t in (Kc, Ec, rc))
     x32 = cyclic.solve(cyclic.factor(K32, E32, nw), r32)
     before = dict(bk.launches)
@@ -568,52 +589,44 @@ def test_mesh_and_nccl_refuse_without_a_gpu():
 
 def _graph_batch(family, B, dev):
     """(specs, config, W0, problem module) of a benchmark-sized batch of
-    B lanes: reverse parking at N=80 on the f32 route from lattice warm
-    starts (starts x, y + uniform(-0.5, 0.5)), the benchmark's cluttered
-    lot ("topo": 4 obstacles of 5 faces, nz = 72, the wide kernels;
-    starts x, y + uniform(-0.5, 0.5), heading + uniform(-0.15, 0.15);
-    cap 70), or nav at N=60 on the mixed route from its default start
-    (y + uniform(-0.4, 0.4))."""
+    B lanes: the main path's reverse parking at N=80 on the f32 route
+    (``full_size_batches.main_path_batch`` and ``main_path_start``), the
+    nav card test's batch on the mixed route (B = 128,
+    ``full_size_batches.nav_batch``, cap 150, its default start), or the
+    benchmark's cluttered lot ("topo": 4 obstacles of 5 faces, nz = 72,
+    the wide kernels; starts x, y + uniform(-0.5, 0.5), heading +
+    uniform(-0.15, 0.15); cap 70)."""
     import dataclasses
 
-    from obca_torch import (f32_solver_config, mixed_solver_config, nav,
-                            reverse_parking_spec)
+    from obca_torch import f32_solver_config, mixed_solver_config, nav
     from obca_torch import spec as tspec
     from obca_torch.solver import ipm
     from obca_torch.warmstart import geometric, lattice
 
+    if family == "nav":
+        assert B == fsb.B_NAV
+        _, specs = fsb.nav_batch(dev)
+        return specs, mixed_solver_config(max_iter=fsb.ITERS_NAV), None, nav
+    if family == "parking":
+        base, specs = fsb.main_path_batch(dev, B=B)
+        return (specs, *fsb.main_path_start(base, specs), ipm.nlp)
+    from portbench import harness
+    from portbench.families import reverse_topo
+
+    _, cfg, _, _ = harness.cell(harness.benchmark(),
+                                "reverse_topo_sweep_b128")
+    _, base = reverse_topo.base_spec(cfg, dev, torch.float32)
     gen = torch.Generator().manual_seed(15)
     shift = torch.zeros(B, 4, dtype=torch.float64)
-    if family == "nav":
-        base = nav.nav_spec(N=60, Ts=0.25, device=dev)
-        shift[:, 1] = 0.8 * torch.rand(B, generator=gen,
-                                       dtype=torch.float64) - 0.4
-        specs = dataclasses.replace(tspec.stack([base] * B),
-                                    x0=base.x0 + shift.to(dev))
-        return specs, mixed_solver_config(max_iter=150), None, nav
-    if family == "topo":
-        from portbench import harness
-        from portbench.families import reverse_topo
-
-        _, cfg, _, _ = harness.cell(harness.benchmark(),
-                                    "reverse_topo_sweep_b128")
-        _, base = reverse_topo.base_spec(cfg, dev, torch.float32)
-        half = torch.tensor([0.5, 0.5, 0.15], dtype=torch.float64)
-        shift[:, :3] = (2.0 * torch.rand(B, 3, generator=gen,
-                                         dtype=torch.float64) - 1.0) * half
-        max_iter = 70
-    else:
-        base = reverse_parking_spec(N=80, Ts=0.3, dtype=torch.float32,
-                                    device=dev)
-        shift[:, :2] = torch.rand(B, 2, generator=gen,
-                                  dtype=torch.float64) - 0.5
-        max_iter = 55
+    half = torch.tensor([0.5, 0.5, 0.15], dtype=torch.float64)
+    shift[:, :3] = (2.0 * torch.rand(B, 3, generator=gen,
+                                     dtype=torch.float64) - 1.0) * half
     specs = dataclasses.replace(tspec.stack([base] * B),
                                 x0=base.x0 + shift.float().to(dev))
     lcfg = lattice.LatticeConfig.for_spec(base)
     W0 = geometric.lattice_warm_start(specs, dtype=torch.float32, cfg=lcfg,
                                       field=lattice.plan_field(base, lcfg))
-    return specs, f32_solver_config(max_iter=max_iter), W0, ipm.nlp
+    return specs, f32_solver_config(max_iter=70), W0, ipm.nlp
 
 
 def _counted(monkeypatch, graphs, fn):

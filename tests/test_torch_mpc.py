@@ -223,37 +223,39 @@ def test_run_fleet_matches_single_runs(case):
 
 
 def first_periods(B=8, steps=2, seed=0):
-    """The first periods of ``chip_smoke.py`` phase 9's fleet cut to B
-    lanes, in float32 on the CPU, in the port and in the JAX package
-    from the same warm starts: each side's initial-plan iterations and
-    per-period statuses and iterations; and, for the port's lane 0, the
-    KKT error after the first re-solve iteration beside w_reg times the
-    largest change of the duals between the warm start and the initial
-    plan (the re-solve anchors its proximal dual term at the plan)."""
+    """The first periods of the card tests' MPC fleet
+    (``full_size_batches.mpc_fleet_batch``) cut to B lanes, in float32
+    on the CPU, in the port and in the JAX package from the same warm
+    starts: each side's initial-plan iterations and per-period statuses
+    and iterations; and, for the port's lane 0, the KKT error after the
+    first re-solve iteration beside w_reg times the largest change of
+    the duals between the warm start and the initial plan (the re-solve
+    anchors its proximal dual term at the plan)."""
     import sys
 
     sys.path.insert(0, "bench")
     import _common
-    import chip_smoke as cs
+    import full_size_batches as fsb
     from obca_torch import f32_solver_config
     from obca_torch.warmstart import lattice
     from obca_tpu.spec import f32_solver_config as j_f32_solver_config
 
-    base, specs = cs.mpc_fleet_batch(torch.device("cpu"), B=B, seed=seed)
-    cfg = f32_solver_config(max_iter=cs.ITERS_MPC)
+    base, specs = fsb.mpc_fleet_batch(torch.device("cpu"), B=B, seed=seed)
+    cfg = f32_solver_config(max_iter=fsb.ITERS_MPC)
     lcfg = lattice.LatticeConfig.for_spec(base)
     W0 = geometric.lattice_warm_start(specs, dtype=cfg.dtype, cfg=lcfg,
                                       field=lattice.plan_field(base, lcfg))
-    knobs = dict(resolve_mu=cs.RESOLVE_MU, resolve_max_iter=cs.RESOLVE_ITERS,
-                 resolve_tol=cs.RESOLVE_TOL)
+    knobs = dict(resolve_mu=fsb.RESOLVE_MU,
+                 resolve_max_iter=fsb.RESOLVE_ITERS,
+                 resolve_tol=fsb.RESOLVE_TOL)
     res = mpc.run_fleet(specs, cfg, steps, W0, **knobs)
     jspecs = _common.scenario_batch(
         j_reverse_parking_spec(N=base.N, Ts=float(base.Ts),
                                dtype=jnp.float32), B, seed=seed,
-        spread=cs.MPC_SPREAD)
+        spread=fsb.MPC_SPREAD)
     assert np.array_equal(np.asarray(jspecs.x0), specs.x0.numpy())
     jres = jax.jit(lambda sp, w: jmpc.run_fleet(
-        sp, j_f32_solver_config(max_iter=cs.ITERS_MPC), steps, w, **knobs))(
+        sp, j_f32_solver_config(max_iter=fsb.ITERS_MPC), steps, w, **knobs))(
         jspecs, jnp.asarray(W0.numpy()))
 
     plan = ipm.solve_batch(specs, cfg, W0)

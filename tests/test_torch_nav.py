@@ -360,9 +360,9 @@ def test_nav_rescue_and_cold_duals():
 
 
 def jax_reference_count(B=128, seed=0, max_iter=150):
-    """The JAX package's converged count on ``chip_smoke.py`` phase 10's
-    nav batch: ``nav_spec()`` at its defaults (N=60) on the grazing
-    layout, lane b's start y shifted by
+    """The JAX package's converged count on the nav card test's batch
+    (``test_torch_card_paths.test_nav_batch``): ``nav_spec()`` at its
+    defaults (N=60) on the grazing layout, lane b's start y shifted by
     ``np.random.default_rng(seed).uniform(-0.4, 0.4, B)[b]``, solved by
     ``ipm.solve_batch_rescued(..., prob=nav)`` under the float64
     ``SolverConfig(max_iter=max_iter)`` on the CPU."""
@@ -388,7 +388,7 @@ def jax_reference_count(B=128, seed=0, max_iter=150):
 
 if __name__ == "__main__":
     # PYTHONPATH=. python tests/test_torch_nav.py prints the JAX
-    # package's converged count on chip_smoke.py phase 10's batch.
+    # package's converged count on the nav card test's batch.
     import json
 
     jax.config.update("jax_platforms", "cpu")
