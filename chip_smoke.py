@@ -5,11 +5,13 @@
 Runs the card tests (marker ``gpu``) of ``tests/test_torch_cuda.py`` and
 ``tests/test_torch_card_paths.py`` through pytest, and exits with
 pytest's status if one fails.  Then prints one ``kernels`` JSON line:
-for each of the seven solver kernels, its launches in one counted run
-of the f32 main path (``tests/full_size_batches.py``: B=128, N=80), and
-its device time per call (``kernel_bench.device_ms``) and least time
-(``kernel_bench.bound_ms``) on the full-size systems at nz = 56 and 72
-(``full_size_batches.full_size_system``); then the device line, last.
+for each of the seven solver kernels and ``ruiz_se``, its launches in
+one counted run of the f32 main path (``tests/full_size_batches.py``:
+B=128, N=80), and its device time per call (``kernel_bench.device_ms``)
+and least time (``kernel_bench.bound_ms``) on the full-size systems at
+nz = 56 and 72 (``full_size_batches.full_size_system``) and at nz = 56
+with the lanes repeated to B=1024 (``ruiz_se`` also its plain version's
+device time); then the device line, last.
 It imports nothing of JAX and nothing of ``obca_tpu``.
 """
 
@@ -21,13 +23,18 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CARD_TESTS = ("tests/test_torch_cuda.py", "tests/test_torch_card_paths.py")
-WIDTHS = ("nz56", "nz72")
+# (name, full_size_system's case, lanes repeated): B=128 at nz = 56 and
+# 72, and B=1024 at nz = 56.
+CASES = (("nz56", "nz56", 1), ("nz72", "nz72", 1),
+         ("nz56_b1024", "nz56", 8))
 
 
-def kernel_calls(case, device):
+def kernel_calls(case, device, copies=1):
     """({kernel: one call of it} on ``full_size_system(case)`` in float32,
-    each fed the outputs of the kernel before it; the system's (B, S,
-    nz, nnz, C) for ``kernel_bench.kernel_costs``)."""
+    its lanes repeated ``copies`` times, each kernel fed the outputs of
+    the kernel before it; ``ruiz_se`` with ``f32_solver_config``'s 3
+    sweeps, and its plain version as ``ruiz_se_plain``; the system's (B,
+    S, nz, nnz, C) for ``kernel_bench.kernel_costs``)."""
     import torch
 
     import full_size_batches as fsb
@@ -36,7 +43,8 @@ def kernel_calls(case, device):
 
     *arrays, pat, E = fsb.full_size_system(case)
     K, ev, reg, r, E = (torch.as_tensor(a, dtype=torch.float32,
-                                        device=device).contiguous()
+                                        device=device)
+                        .repeat(copies, *(1,) * (a.ndim - 1)).contiguous()
                         for a in (*arrays, E))
     Kd = (K + torch.diag_embed(reg)[:, None]).contiguous()
     Sinv, Wc = bk.factor_se(K, ev, reg, pat)
@@ -52,6 +60,8 @@ def kernel_calls(case, device):
         "factor_dense": lambda: bd.factor_dense(Kd, E),
         "fwd_dense": lambda: bd.fwd_dense(Sd, E, r),
         "bwd_dense": lambda: bd.bwd_dense(W, yd),
+        "ruiz_se": lambda: bk.ruiz_se(K, ev, r, pat, 3),
+        "ruiz_se_plain": lambda: bk.ruiz_se_plain(K, ev, r, pat, 3),
     }, (B, S, nz, ev.shape[-1], len(pat.ucols))
 
 
@@ -80,15 +90,18 @@ def main():
     torch.cuda.synchronize()
     launches = dict(bk.launches)
     kernels = {}
-    for case in WIDTHS:
-        calls, shape = kernel_calls(case, device)
+    for label, case, copies in CASES:
+        calls, shape = kernel_calls(case, device, copies)
         costs = kb.kernel_costs(*shape)
         for name, fn in calls.items():
-            ms, by = kb.bound_ms(*costs[name])
-            kernels.setdefault(name, {"name": name,
-                                      "launches": launches[name]})
-            kernels[name][case] = {"device_ms": kb.device_ms(fn)[0],
-                                   "bound_ms": ms, "bound_by": by}
+            kernel = name.removesuffix("_plain")
+            ms, by = kb.bound_ms(*costs[kernel])
+            kernels.setdefault(kernel, {"name": kernel,
+                                        "launches": launches[kernel]})
+            entry = kernels[kernel].setdefault(
+                label, {"bound_ms": ms, "bound_by": by})
+            key = "device_ms" if name == kernel else "plain_ms"
+            entry[key] = kb.device_ms(fn)[0]
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,7 @@ import torch
 from obca_torch import nlp, trace
 from obca_torch import spec as spec_mod
 from obca_torch.solver import blocktri, kkt
+from obca_torch.solver.kernels import blocktri_se as bk
 from obca_torch.solver.kernels import runtime
 
 STATUS_CONVERGED = 0
@@ -296,8 +297,9 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
     kkt_main = kkt.make_kkt_solver_se(nw, cfg.refine_iters, fd, rd,
                                       e_rows, e_cols)
     kkt_soc = kkt.make_kkt_solver_se(nw, 2, fd, rd, e_rows, e_cols)
-    rows_t = torch.as_tensor(e_rows, device=dev)
-    cols_t = torch.as_tensor(e_cols, device=dev)
+    pat = kkt_main.pat
+    ix = pat.index(dev)
+    rows_t, cols_t = ix["rows"], ix["cols"]
 
     n_nu = (L.N + 1) * nc
     n_z = (L.N + 1) * nw
@@ -341,29 +343,13 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
 
     def _ruiz(K, ev, rhs):
         """Symmetric Ruiz equilibration of (K, ev) with the coupling
-        taking part through its sparse values."""
-        def coupling_row_norms(rn, aev_s):
-            # rn[:, :-1, rows_j] = max(., aev_s_j); rn[:, 1:, cols_j] = ...
-            idx_r = rows_t.expand_as(aev_s)
-            idx_c = cols_t.expand_as(aev_s)
-            rn = rn.clone()
-            rn[:, :-1] = rn[:, :-1].scatter_reduce(2, idx_r, aev_s, "amax",
-                                                   include_self=True)
-            rn[:, 1:] = rn[:, 1:].scatter_reduce(2, idx_c, aev_s, "amax",
-                                                 include_self=True)
-            return rn
-
+        taking part through its sparse values: ``ruiz_se``, the scaling
+        applied once (``ruiz_single_apply``)."""
         if cfg.ruiz_single_apply:
-            aK = torch.abs(K)
-            aev = torch.abs(ev)
-            dsc = torch.ones_like(rhs)
-            for _ in range(cfg.ruiz_iters):
-                rn = (aK * dsc[:, :, None, :]).amax(-1) * dsc
-                aev_s = aev * dsc[:, :-1, rows_t] * dsc[:, 1:, cols_t]
-                rn = coupling_row_norms(rn, aev_s)
-                dsc = dsc / torch.sqrt(torch.clamp(rn, min=1e-10))
-            if cfg.ruiz_pow2:
-                dsc = torch.exp2(torch.round(torch.log2(dsc)))
+            if not cfg.ruiz_pow2:
+                return bk.ruiz_se(K, ev, rhs, pat, cfg.ruiz_iters)
+            dsc = bk.ruiz_se(K, ev, rhs, pat, cfg.ruiz_iters)[3]
+            dsc = torch.exp2(torch.round(torch.log2(dsc)))
             K_s = K * dsc[:, :, :, None] * dsc[:, :, None, :]
             ev_s = ev * dsc[:, :-1, rows_t] * dsc[:, 1:, cols_t]
             return K_s, ev_s, rhs * dsc, dsc
@@ -371,7 +357,7 @@ def _make_step(spec, cfg, W0=None, duals0: DualState | None = None,
         dsc = torch.ones_like(rhs)
         for _ in range(cfg.ruiz_iters):
             rn = torch.abs(K_s).amax(-1)
-            rn = coupling_row_norms(rn, torch.abs(ev_s))
+            rn = bk.coupling_row_max(rn, torch.abs(ev_s), pat)
             d = 1.0 / torch.sqrt(torch.clamp(rn, min=1e-10))
             K_s = K_s * d[:, :, :, None] * d[:, :, None, :]
             ev_s = ev_s * d[:, :-1, rows_t] * d[:, 1:, cols_t]

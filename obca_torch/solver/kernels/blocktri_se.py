@@ -6,15 +6,18 @@ runs on every IPM iteration (``obca_tpu/solver/pallas/
 blocktri_kernel.py``: ``factor_batched_se``, ``fwd_se``,
 ``bwd_matvec_se`` on the single-precision route, and
 ``solve_batched_se`` — ``fwd_se`` then ``bwd_se`` here — on the
-mixed-precision route).  The layout is batch-major — K [B, S, nz, nz],
-ev [B, S-1, nnz], vectors [B, S, nz] — which is what the IPM holds, so
-no transposes or padding surround the calls.  The coupling block E_k
-has values ev[:, k] at the static positions (rows, cols).
+mixed-precision route), and ``ruiz_se``, the IPM's Ruiz equilibration
+of the same system, which XLA fuses on the TPU.  The layout is
+batch-major — K [B, S, nz, nz], ev [B, S-1, nnz], vectors [B, S, nz] —
+which is what the IPM holds, so no transposes or padding surround the
+calls.  The coupling block E_k has values ev[:, k] at the static
+positions (rows, cols).
 
 Each wrapper takes the plain version for a tensor on the CPU.  For a
-CUDA tensor it checks dtype (float32), shape, contiguity and device,
-launches the hand-written kernel on the current stream and counts the
-launch in :data:`launches`, or raises; it never falls back.
+CUDA tensor it checks dtype (float32; ``ruiz_se`` also float64, the
+mixed route's IPM dtype), shape, contiguity and device, launches the
+hand-written kernel on the current stream and counts the launch in
+:data:`launches`, or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -164,6 +167,38 @@ def solve_se_plain(Sinv, Wc, ev, r, pat: CouplingPattern):
     return bwd_se_plain(Wc, fwd_se_plain(Sinv, ev, r, pat), pat)
 
 
+def coupling_row_max(rn, aev_s, pat: CouplingPattern):
+    """Row norms rn [B, S, nz] with the coupling terms aev_s [B, S-1,
+    nnz] merged by max: rn[:, k, rows_j] and rn[:, k+1, cols_j] take
+    aev_s[:, k, j]."""
+    ix = pat.index(rn.device)
+    idx_r = ix["rows"].expand_as(aev_s)
+    idx_c = ix["cols"].expand_as(aev_s)
+    rn = rn.clone()
+    rn[:, :-1] = rn[:, :-1].scatter_reduce(2, idx_r, aev_s, "amax",
+                                           include_self=True)
+    rn[:, 1:] = rn[:, 1:].scatter_reduce(2, idx_c, aev_s, "amax",
+                                         include_self=True)
+    return rn
+
+
+def ruiz_se_plain(K, ev, rhs, pat: CouplingPattern, iters):
+    """Plain version of :func:`ruiz_se`."""
+    ix = pat.index(K.device)
+    rows, cols = ix["rows"], ix["cols"]
+    aK = torch.abs(K)
+    aev = torch.abs(ev)
+    dsc = torch.ones_like(rhs)
+    for _ in range(iters):
+        rn = (aK * dsc[:, :, None, :]).amax(-1) * dsc
+        aev_s = aev * dsc[:, :-1, rows] * dsc[:, 1:, cols]
+        rn = coupling_row_max(rn, aev_s, pat)
+        dsc = dsc / torch.sqrt(torch.clamp(rn, min=1e-10))
+    K_s = K * dsc[:, :, :, None] * dsc[:, :, None, :]
+    ev_s = ev * dsc[:, :-1, rows] * dsc[:, 1:, cols]
+    return K_s, ev_s, rhs * dsc, dsc
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers.
 # ---------------------------------------------------------------------------
@@ -276,3 +311,40 @@ def solve_se(Sinv, Wc, ev, r, pat: CouplingPattern):
     :func:`factor_se`: :func:`fwd_se`, then :func:`bwd_se`.  The
     counterpart of the TPU's ``solve_batched_se``."""
     return bwd_se(Wc, fwd_se(Sinv, ev, r, pat), pat)
+
+
+def ruiz_se(K, ev, rhs, pat: CouplingPattern, iters):
+    """Symmetric Ruiz equilibration of the system (K [B, S, nz, nz],
+    ev [B, S-1, nnz]) with the coupling taking part through its values:
+    ``iters`` sweeps of d <- d / sqrt(max(rn, 1e-10)) from d = 1, rn the
+    row maxima of |diag(d) T diag(d)|.  Returns (K_s, ev_s, rhs_s, d):
+    the scaled blocks, coupling values and rhs [B, S, nz], and d.  On
+    the card float32 or float64, the same bits as
+    :func:`ruiz_se_plain` there."""
+    if on_cpu("ruiz_se", K):
+        return ruiz_se_plain(K, ev, rhs, pat, iters)
+    if rhs.dim() != 3:
+        raise ValueError(f"ruiz_se: rhs has shape {tuple(rhs.shape)}, "
+                         f"expected [B, S, nz]")
+    B, S, nz = rhs.shape
+    nnz = len(pat.rows)
+    dev = K.device
+    if iters < 1:
+        raise ValueError(f"ruiz_se: iters={iters}, expected at least 1")
+    check_nz("ruiz_se", nz)
+    _check_pattern("ruiz_se", pat, nz)
+    check("ruiz_se", "K", K, (B, S, nz, nz), dev,
+          (torch.float32, torch.float64))
+    check("ruiz_se", "ev", ev, (B, S - 1, nnz), dev, (K.dtype,))
+    check("ruiz_se", "rhs", rhs, (B, S, nz), dev, (K.dtype,))
+    ix = pat.index(dev, torch.int32)
+    lst = pat.lists_index(nz, dev)
+    K_s = torch.empty_like(K)
+    ev_s = torch.empty_like(ev)
+    rhs_s = torch.empty_like(rhs)
+    d = torch.empty_like(rhs)
+    d_tmp = torch.empty_like(rhs)
+    launch("ruiz_se", dev, K, ev, rhs, ix["rows"], ix["cols"],
+           lst["rstart"], lst["rent"], lst["cstart"], lst["cent"], B, S,
+           nz, nnz, iters, K.element_size(), K_s, ev_s, rhs_s, d, d_tmp)
+    return K_s, ev_s, rhs_s, d

@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("factor_se", "fwd_se", "bwd_matvec_se", "bwd_se", "factor_dense",
-           "solve_dense", "probes")
+           "solve_dense", "probes", "ruiz_se")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

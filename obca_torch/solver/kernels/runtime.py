@@ -17,7 +17,7 @@ import torch
 launches = {name: 0 for name in (
     "factor_se", "fwd_se", "bwd_matvec_se", "bwd_se",
     "factor_dense", "fwd_dense", "bwd_dense", "stream_add_one",
-    "fma_probe")}
+    "fma_probe", "ruiz_se")}
 
 
 def reset_launches():
@@ -48,6 +48,8 @@ SIGNATURES = {
     "stream_add_one": ("probes", "obca_stream_add_one_f32",
                        [_P, _P, _L, _P]),
     "fma_probe": ("probes", "obca_fma_probe_f32", [_P, _P, _L, _P]),
+    # One entry point for float32 and float64 (its element size in bytes).
+    "ruiz_se": ("ruiz_se", "obca_ruiz_se", [_P] * 9 + [_I] * 6 + [_P] * 6),
 }
 
 _entries: dict = {}
@@ -90,12 +92,13 @@ def check_nz(kernel, nz):
                          f"NZ_MAX={NZ_MAX}")
 
 
-def check(kernel, what, t, shape, device):
+def check(kernel, what, t, shape, device, dtypes=(torch.float32,)):
     if t.device != device:
         raise ValueError(f"{kernel}: {what} is on {t.device}, "
                          f"expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{kernel}: {what} must be float32 on CUDA, "
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{kernel}: {what} must be {names} on CUDA, "
                         f"got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {what} has shape {tuple(t.shape)}, "

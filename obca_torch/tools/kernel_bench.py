@@ -93,6 +93,11 @@ def kernel_costs(B, S, nz, nnz, C):
         "bwd_dense": (
             E + vec + vec,
             B * (S - 1) * 2 * nz * nz),
+        # Every input read once and K_s, ev_s, rhs_s, d written once;
+        # three sweeps of |K_ij| d_j and its max, then two products.
+        "ruiz_se": (
+            K + ev + vec + (4 * nnz + 2 * (nz + 1)) * i + K + ev + 2 * vec,
+            11 * n),
         "stream_add_one": (2 * n * f, n),
         "fma_probe": (2 * n * f, probes.FMA_PROBE_OPS * n),
     }

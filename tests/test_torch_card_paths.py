@@ -486,6 +486,55 @@ def test_nav_batch(cuda):
     assert float((res.U[0].double().cpu() - ref.U).abs().max()) <= PARITY_TOL
 
 
+def _equal(a, b):
+    """``torch.equal``, with NaN equal to NaN at the same places."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return torch.equal(nan_a, nan_b) and torch.equal(
+        a.masked_fill(nan_a, 0), b.masked_fill(nan_b, 0))
+
+
+@pytest.mark.parametrize("family", ["parking", "nav"])
+def test_ruiz_kernel_whole_solve(family, cuda, monkeypatch):
+    """The f32 main path (B=128) and the nav batch (B=128, float64 IPM),
+    each solved with ``ruiz_se``'s kernel and again with the wrapper
+    swapped for its plain version: W, nu, iters and status equal bit for
+    bit, and the kernel launched once an IPM turn (the trace's
+    ``ipm.iters``), replayed turns included."""
+    from obca_torch import mixed_solver_config, nav, trace
+    from obca_torch.solver import ipm
+
+    if family == "parking":
+        base, specs = fsb.main_path_batch(cuda)
+        cfg, W0 = fsb.main_path_start(base, specs)
+
+        def solve():
+            return ipm.solve_batch_rescued(specs, cfg, W0, rescue_mu=1e-5)
+    else:
+        _, specs = fsb.nav_batch(cuda)
+        cfg = mixed_solver_config(max_iter=fsb.ITERS_NAV)
+
+        def solve():
+            return ipm.solve_batch_rescued(specs, cfg, prob=nav)
+
+    bk.reset_launches()
+    trace.take()
+    trace.enable()
+    try:
+        res = solve()
+        torch.cuda.synchronize()
+    finally:
+        trace.enable(False)
+    _, counters = trace.take()
+    assert bk.launches["ruiz_se"] == counters["ipm.iters"] > 0
+    assert counters["ipm.graph_replays"] > 0
+    monkeypatch.setattr(bk, "ruiz_se", bk.ruiz_se_plain)
+    bk.reset_launches()
+    plain = solve()
+    assert bk.launches["ruiz_se"] == 0
+    for field in ("W", "nu", "iters", "status"):
+        assert _equal(getattr(res, field), getattr(plain, field)), field
+
+
 def _free_port():
     """A free localhost TCP port for a process group's rendezvous."""
     with socket.socket() as sock:

@@ -475,6 +475,124 @@ def test_cuda_nav_float64_factor_refused(cuda):
         nav.solve(spec, SolverConfig(max_iter=5))
 
 
+def _ruiz_pattern(width):
+    """(coupling pattern, nz) of the small system, of it at the cap nz =
+    NZ_MAX, or of a benchmark configuration's layout: parking (nz =
+    56), the cluttered lot (nz = 72), nav (nz = 44)."""
+    from obca_torch import nav, nlp, reverse_parking_spec
+
+    if width in ("small", "cap"):
+        return (bk.CouplingPattern.of(ROWS, COLS),
+                NZ if width == "small" else bk.NZ_MAX)
+    if width == "nav44":
+        L = nav.layout_of(nav.nav_spec(N=4, vertex_lists=fsb.NAV_VERTS,
+                                       device="cpu"))
+        return bk.CouplingPattern.of(*nav.coupling_structure(L)), L.nz
+    kw = dict(max_obs=4, max_faces=5) if width == "nz72" else {}
+    L = nlp.layout_of(reverse_parking_spec(N=4, Ts=0.3, device="cpu", **kw))
+    return bk.CouplingPattern.of(*nlp.coupling_structure(L)), L.nz
+
+
+def _ruiz_system(B, S, nz, nnz, dtype, dev, offset=False):
+    """A symmetric K [B, S, nz, nz] on the card whose rows span ten
+    decades, with exact zeros and an all-zero row and column (the
+    clamp's case); ev [B, S-1, nnz], rhs [B, S, nz].  For B > 1 lane
+    B // 2 holds a NaN at stage S // 3.  With offset, K starts 4 bytes
+    past a 16-byte boundary."""
+    g = torch.Generator(dev).manual_seed(B * 1000 + nz)
+    kw = dict(generator=g, device=dev, dtype=dtype)
+    scale = 10.0 ** (10.0 * torch.rand((B, S, nz), **kw) - 5.0)
+    A = torch.randn((B, S, nz, nz), **kw)
+    A *= torch.rand((B, S, nz, nz), **kw) < 0.6
+    K = (A + A.transpose(-1, -2)) * scale[..., None] * scale[..., None, :]
+    del A
+    K[:, :, 3] = 0.0
+    K[:, :, :, 3] = 0.0
+    if B > 1:
+        K[B // 2, S // 3, 5, 7] = float("nan")
+    if offset:
+        buf = torch.empty(K.numel() + 1, device=dev, dtype=dtype)
+        buf[1:].view(K.shape).copy_(K)
+        K = buf[1:].view(K.shape)
+    ev = torch.randn((B, S - 1, nnz), **kw) * 10.0 ** (
+        6.0 * torch.rand((B, S - 1, nnz), **kw) - 3.0)
+    return K, ev, torch.randn((B, S, nz), **kw)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (signed zeros included), NaN where the other is
+    NaN whatever its payload."""
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    as_int = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return torch.equal(a.masked_fill(nan, 0).view(as_int),
+                       b.masked_fill(nan, 0).view(as_int))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("iters", [3, 4])
+@pytest.mark.parametrize("B,S,width,dtype,offset", [
+    (128, 81, "nz56", torch.float32, False),
+    (1024, 81, "nz56", torch.float32, False),
+    (128, 81, "nz72", torch.float32, False),
+    (128, 61, "nav44", torch.float64, False),
+    (1, 81, "nz56", torch.float32, False),
+    (3, 9, "small", torch.float32, False),
+    (3, 9, "small", torch.float64, False),
+    (4, 9, "nz56", torch.float32, True),
+    (2, 5, "cap", torch.float32, False),
+    (2, 5, "cap", torch.float64, False)])
+def test_cuda_ruiz_matches_plain(B, S, width, dtype, offset, iters, cuda):
+    """``ruiz_se`` equals its plain version on the card bit for bit in
+    all four outputs (K_s, ev_s, rhs_s, d), a NaN lane included (B > 1),
+    at the benchmark's shapes: parking at B = 128, 1024 and 1, the
+    cluttered lot, nav in float64; on the scalar-load routes: nz = 11
+    (rows of 44 and 88 bytes) and an unaligned K; and at nz = NZ_MAX,
+    where a float64 block takes a ring of one buffer.  One launch
+    counted per call."""
+    pat, nz = _ruiz_pattern(width)
+    K, ev, rhs = _ruiz_system(B, S, nz, len(pat.rows), dtype, cuda, offset)
+    before = bk.launches["ruiz_se"]
+    got = bk.ruiz_se(K, ev, rhs, pat, iters)
+    torch.cuda.synchronize()
+    assert bk.launches["ruiz_se"] == before + 1
+    want = bk.ruiz_se_plain(K, ev, rhs, pat, iters)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _same_bits(g, w)
+    if B > 1:
+        assert bool(torch.isnan(got[3][B // 2, S // 3]).all())
+        assert bool(torch.isfinite(got[3][B // 2 - 1]).all())
+
+
+@pytest.mark.gpu
+def test_cuda_ruiz_refuses_bad_inputs(cuda):
+    """``ruiz_se`` on the card takes float32 or float64 only, one dtype
+    for all three inputs, the shapes [B, S, nz, nz], [B, S-1, nnz],
+    [B, S, nz], contiguous tensors and nz <= NZ_MAX; it raises on
+    anything else and launches nothing."""
+    pat, nz = _ruiz_pattern("small")
+    K, ev, rhs = _ruiz_system(3, 9, nz, len(pat.rows), torch.float32, cuda)
+    before = bk.launches["ruiz_se"]
+    with pytest.raises(TypeError, match="float32 or float64"):
+        bk.ruiz_se(K.half(), ev.half(), rhs.half(), pat, 3)
+    with pytest.raises(TypeError, match="float32"):
+        bk.ruiz_se(K, ev.double(), rhs, pat, 3)
+    with pytest.raises(ValueError, match="shape"):
+        bk.ruiz_se(K, ev[:, 1:].contiguous(), rhs, pat, 3)
+    with pytest.raises(ValueError, match="shape"):
+        bk.ruiz_se(K[:, :, 1:].contiguous(), ev, rhs, pat, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        bk.ruiz_se(K.transpose(-1, -2), ev, rhs, pat, 3)
+    with pytest.raises(ValueError, match="NZ_MAX"):
+        big = bk.NZ_MAX + 4
+        bk.ruiz_se(torch.zeros((1, 2, big, big), device=cuda),
+                   torch.zeros((1, 1, len(pat.rows)), device=cuda),
+                   torch.zeros((1, 2, big), device=cuda), pat, 3)
+    assert bk.launches["ruiz_se"] == before
+
+
 def _random_qd(rng, B, S, nw, nc):
     """A batch of well-conditioned quasidefinite block-tridiagonal
     systems (float64 numpy)."""
